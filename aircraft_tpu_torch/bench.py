@@ -1,0 +1,226 @@
+"""The serving-chain headline on the port: batched N=50 MHTT window solves
+of a fleet of gliders spread along the course track, chained window to
+window.
+
+Each window solves the whole fleet's N=50, dt=0.01 window (3 AL rounds x
+12 inner iterations, Gauss-Newton curvature, 6 line-search candidates,
+per-row penalty ratchet), commits 20 knots, and carries the state, the
+shifted controls and the violation-gated duals to the next window.  On
+``cuda`` every inner iteration runs the two window kernels; on ``cpu``
+their plain versions.
+
+    python -m aircraft_tpu_torch.bench [--batch 256] [--warmup 6] [--reps 3]
+
+prints one JSON line with the reference bench's headline fields plus
+``device``, ``fused_kernels`` and ``matmul_precision``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from aircraft_tpu_torch.config import SolverConfig, glider_config
+from aircraft_tpu_torch.control.course import COURSE_OCP_KNOBS, course_track
+from aircraft_tpu_torch.control.mhtt import build_mhtt_ocp
+from aircraft_tpu_torch.device import matmul_precision, resolve_device
+from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+from aircraft_tpu_torch.kernels import window as window_mod
+from aircraft_tpu_torch.solvers import ocp as ocp_mod
+from aircraft_tpu_torch.solvers.fused import make_fused_solver
+from aircraft_tpu_torch.solvers.trim import multistart_trim
+
+BASELINE_SOLVES_PER_S = 5.0   # one N=50 window per 0.2 s of committed flight
+N_HORIZON = 50
+DT = 0.01
+OVERLAP = 30                  # knots a window shares with the next
+RESET_VIOL = 5.0              # physical-unit-scaled rows
+
+
+def headline_config(al_iters=3, inner_iters=12, ls=6) -> SolverConfig:
+    return SolverConfig(max_al_iters=al_iters, max_inner_iters=inner_iters,
+                        line_search_steps=ls, hessian="gauss_newton",
+                        reg_escalate=100.0, penalty_per_row=True)
+
+
+def plant_best_glide(params, speeds=(24.0, 28.0, 32.0), seed=0):
+    """(v_ref, glide_ld): the trim speed with the flattest glide, the
+    track laid out at 90% of that L/D."""
+    best = None
+    for v in speeds:
+        gen = torch.Generator().manual_seed(seed)
+        t = multistart_trim(params, n_starts=8, target_airspeed=float(v),
+                            prefer_coordinated=True, generator=gen)
+        vel = t.state[3:6].detach().cpu().numpy()
+        gamma = float(np.arctan2(vel[2], np.hypot(vel[0], vel[1])))
+        ld = 1.0 / max(np.tan(gamma), 1e-3)
+        if best is None or ld > best[1]:
+            best = (float(v), ld)
+    return best[0], 0.9 * best[1]
+
+
+def build_problem(device="cuda", *, coeff=None, seed=0):
+    """The bench's window OCP: MLP plant, course track anchored 20 m above
+    ground at its end, the course knobs with unit-scaled envelope rows and
+    the tanh control squash.  Returns (cfg, params, ocp, track, v_ref,
+    spec)."""
+    dev = resolve_device(device)
+    cfg = glider_config()
+    coeff = load_mlp(device=dev) if coeff is None else coeff
+    params = AircraftParams.from_config(cfg.aircraft, coeff=coeff, device=dev)
+    v_ref, glide_ld = plant_best_glide(params, seed=seed)
+    track = course_track(cfg, v_ref=v_ref, glide_ld=glide_ld)
+    z_end = float(track.track_points[:, 2].max())
+    track.track_points = track.track_points.clone()
+    track.track_points[:, 2] -= max(0.0, z_end + 20.0)
+    knobs = dict(COURSE_OCP_KNOBS)
+    knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
+                                   "unit_scales": True}
+    knobs["squash_box"] = True
+    spec = {}
+    ocp = build_mhtt_ocp(params, cfg, track.track_points.to(dev),
+                         track.length(), dt=DT, v_ref=v_ref, spec_out=spec,
+                         **knobs)
+    return cfg, params, ocp, track, v_ref, spec
+
+
+def fleet_states(params, track, batch, v_ref, *, s_span=(0.1, 0.9), seed=0):
+    """`batch` gliders at the serving speed along the track (coordinated
+    turn attitude and rates of the track's state guess), and the trim
+    that seeds their controls.  Returns (z0s (B, 14), trim)."""
+    gen = torch.Generator().manual_seed(seed)
+    trim = multistart_trim(params, n_starts=32, target_airspeed=v_ref + 2.0,
+                           prefer_coordinated=True, generator=gen)
+    M = 256
+    guess = np.asarray(track.state_guess(M), np.float64)
+    idx = np.round(np.linspace(s_span[0], s_span[1], batch) * M).astype(int)
+    rows = guess[idx].copy()
+    speed0 = np.linalg.norm(rows[:, 3:6], axis=1, keepdims=True)
+    scale = v_ref / np.maximum(speed0, 1e-6)
+    rows[:, 3:6] *= scale
+    rows[:, 10:13] *= scale
+    z = np.concatenate([rows, (idx / M)[:, None]], axis=1).astype(np.float32)
+    return torch.as_tensor(z, device=params.device), trim
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
+                 inner_iters=12, ls=6, warmup=6, reps=3, seed=0) -> dict:
+    """Cold window, `warmup` chained windows, then `reps` timed chained
+    windows; returns the headline record."""
+    dev = resolve_device(device)
+    t_setup = time.perf_counter()
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed)
+    config = headline_config(al_iters, inner_iters, ls)
+    z0s, trim = fleet_states(params, track, batch, v_ref, seed=seed)
+    u_trim = ocp.control_unsquash(trim.control[:7])
+    us0 = u_trim.reshape(1, 1, 7).expand(batch, horizon, 7).contiguous()
+    al0 = ocp_mod.init_al_state(ocp, z0s, us0[:, 0], horizon,
+                                mu0=config.penalty_init)
+    solve = make_fused_solver(ocp, spec, horizon, config)
+    setup_s = time.perf_counter() - t_setup
+    commit = horizon - OVERLAP if horizon > OVERLAP else max(1, horizon // 2)
+
+    def chain_step(z, us, al):
+        sols = solve(z, us, al)
+        z_next = sols.xs[:, commit]
+        us_next = torch.cat([sols.us[:, commit:],
+                             sols.us[:, -1:].expand(-1, commit, -1)], dim=1)
+        al_next = ocp_mod.shift_al_state(
+            sols.al, commit, mu0=config.penalty_init,
+            decay=ocp_mod.gated_decay(sols.violation, RESET_VIOL))
+        bad = sols.violation > RESET_VIOL
+        us_next = torch.where(bad[:, None, None], us0, us_next)
+        al_next = al_next.where(bad, al0)
+        return z_next.contiguous(), us_next.contiguous(), al_next, sols
+
+    t0 = time.perf_counter()
+    z, us, al, sols = chain_step(z0s, us0, al0)
+    _sync(dev)
+    cold_s = time.perf_counter() - t0
+    cold_viol = float(torch.nanmean(sols.violation))
+    for _ in range(warmup):
+        z, us, al, sols = chain_step(z, us, al)
+    walls = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        z, us, al, sols = chain_step(z, us, al)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+
+    viol = sols.violation.detach().cpu().numpy()
+    cost = sols.cost.detach().cpu().numpy()
+    converged = float(np.mean(viol <= 1e-2))
+    return {
+        "metric": "6dof_nn_mpc_solves_per_s_N50_per_chip",
+        "value": round(batch / wall, 2),
+        "feasibility_gate_95pct_1e2_passed": converged >= 0.95,
+        "unit": "solves/s",
+        "vs_baseline": round(batch / wall / BASELINE_SOLVES_PER_S, 2),
+        "batch": batch,
+        "wall_s_per_batch": round(wall, 4),
+        "latency_s_per_window": round(wall, 4),
+        "compile_s": round(setup_s + cold_s, 1),
+        "compile_cache_entries_at_start": 0,
+        "chained_windows": True,
+        "scan_windows": 1,
+        "matmul_precision": matmul_precision(),
+        "al_iters": config.max_al_iters,
+        "inner_iters": config.max_inner_iters,
+        "penalty_per_row": config.penalty_per_row,
+        "violation_units": "physical-unit-scaled",
+        "converged_gate": 1e-2,
+        "reset_viol": RESET_VIOL,
+        "warmup_windows": warmup,
+        "finite_fraction": round(float(np.isfinite(cost).mean()), 3),
+        "mean_violation": round(float(np.nanmean(viol)), 6),
+        "cold_window_mean_violation": round(cold_viol, 4),
+        "converged_fraction_1e2": round(converged, 4),
+        "converged_fraction_1e4": round(float(np.mean(viol <= 1e-4)), 4),
+        "p90_violation": round(float(np.nanpercentile(viol, 90)), 6),
+        "median_violation": round(float(np.nanpercentile(viol, 50)), 6),
+        "diverged_fraction": round(float(np.mean(viol > RESET_VIOL)), 4),
+        "mean_cost": round(float(np.nanmean(cost)), 2),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "fused_kernels": dev.type == "cuda",
+        "windows": 1 + warmup + reps,
+        "horizon": horizon,
+        "line_search_steps": ls,
+        "kernel_launches": {fn.__name__: fn.launches
+                            for fn in window_mod.KERNELS},
+    }
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--horizon", type=int, default=N_HORIZON)
+    p.add_argument("--al-iters", type=int, default=3)
+    p.add_argument("--inner-iters", type=int, default=12)
+    p.add_argument("--line-search", type=int, default=6)
+    p.add_argument("--warmup", type=int, default=6)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    a = p.parse_args(argv)
+    out = run_headline(a.device, batch=a.batch, horizon=a.horizon,
+                       al_iters=a.al_iters, inner_iters=a.inner_iters,
+                       ls=a.line_search, warmup=a.warmup, reps=a.reps,
+                       seed=a.seed)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""Flight-envelope inequality rows g(x, u, k) <= 0."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from aircraft_tpu_torch.config import RHO, ControlEnvelope, StateEnvelope
+from aircraft_tpu_torch.dynamics import aircraft as ac
+from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+
+REFERENCE_ENVELOPE = {
+    # the reference OCP's hard-coded envelope (airspeed in [20, 100] m/s,
+    # |alpha| <= 20 deg, |beta| <= 10 deg); controllers that mirror it pass
+    # these overrides, otherwise the declared state envelope applies
+    "speed_bounds": (20.0, 100.0),
+    "alpha_limit_deg": 20.0,
+    "beta_limit_deg": 10.0,
+}
+
+
+def envelope_ineq(params: AircraftParams, state_env: StateEnvelope,
+                  control_env: ControlEnvelope, *,
+                  speed_bounds: Optional[tuple[float, float]] = None,
+                  alpha_limit_deg: Optional[float] = None,
+                  beta_limit_deg: Optional[float] = None,
+                  unit_scales: bool = False,
+                  include_control_box: bool = True) -> Callable:
+    """Stage inequality rows, in order: [u - ub (7), lb - u (7)] when
+    ``include_control_box``, then airspeed² floor and ceiling, ±beta,
+    ±alpha, and z (NED altitude floor).  ``unit_scales`` divides the
+    squared-speed rows by their boundary gradient 2·v so every row reads
+    in physical units.  The resolved row constants are attached as
+    ``.resolved`` for the window kernels."""
+    lb_np, ub_np = control_env.bounds(7)
+    dev = params.device
+    lb = torch.as_tensor(lb_np, dtype=torch.float32, device=dev)
+    ub = torch.as_tensor(ub_np, dtype=torch.float32, device=dev)
+    if speed_bounds is None:
+        speed_bounds = (float(state_env.airspeed[0]),
+                        float(state_env.airspeed[1]))
+    if alpha_limit_deg is None:
+        alpha_limit_deg = float(max(abs(state_env.alpha[0]),
+                                    abs(state_env.alpha[1])))
+    if beta_limit_deg is None:
+        beta_limit_deg = float(max(abs(state_env.beta[0]),
+                                   abs(state_env.beta[1])))
+    alpha_lim = float(np.deg2rad(alpha_limit_deg))
+    beta_lim = float(np.deg2rad(beta_limit_deg))
+    lo2, hi2 = speed_bounds[0] ** 2, speed_bounds[1] ** 2
+    lo_scale = 1.0 / (2.0 * speed_bounds[0]) if unit_scales else 1.0
+    hi_scale = 1.0 / (2.0 * speed_bounds[1]) if unit_scales else 1.0
+
+    def ineq(x, u, k):
+        aero = ac.aero_state(params, x, u)
+        v2 = 2.0 * aero.qbar / RHO
+        rows = [(lo2 - v2) * lo_scale, (v2 - hi2) * hi_scale,
+                aero.beta - beta_lim, -beta_lim - aero.beta,
+                aero.alpha - alpha_lim, -alpha_lim - aero.alpha, x[..., 2]]
+        env = torch.stack(rows, dim=-1)
+        if not include_control_box:
+            return env
+        return torch.cat([u - ub, lb - u, env], dim=-1)
+
+    ineq.resolved = {
+        "speed_bounds": (float(speed_bounds[0]), float(speed_bounds[1])),
+        "alpha_lim": alpha_lim,
+        "beta_lim": beta_lim,
+        "lo_scale": float(lo_scale),
+        "hi_scale": float(hi_scale),
+        "include_control_box": include_control_box,
+        "lb": np.asarray(lb_np, np.float32),
+        "ub": np.asarray(ub_np, np.float32),
+    }
+    return ineq

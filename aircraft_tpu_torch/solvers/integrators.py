@@ -1,0 +1,54 @@
+"""Fixed-step RK4 integration of the 6-DoF plant.
+
+``normalize="step"`` renormalises the quaternion after every (sub)step;
+``"none"`` leaves drift alone.  The exponential-map and implicit modes of
+the reference are not ported yet.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable
+
+import torch
+
+from aircraft_tpu_torch.dynamics import aircraft, base
+
+NORMALIZE_MODES = ("none", "step")
+
+
+def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
+    """Classic RK4 with zero-order-hold control; ``dt`` a scalar or a
+    tensor with x's batch axes."""
+    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)[..., None]
+    half = 0.5 * dt
+    k1 = f(x, u)
+    k2 = f(x + half * k1, u)
+    k3 = f(x + half * k2, u)
+    k4 = f(x + dt * k3, u)
+    return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def step(params, x: torch.Tensor, u: torch.Tensor, dt, *, substeps: int = 1,
+         normalize: str = "none",
+         derivative_fn: Callable | None = None) -> torch.Tensor:
+    """One control interval: ``substeps`` RK4 steps of dt/substeps each."""
+    if normalize not in NORMALIZE_MODES:
+        raise NotImplementedError(f"normalize={normalize!r} is not ported")
+    f = (derivative_fn if derivative_fn is not None
+         else partial(aircraft.state_derivative, params))
+    dt_i = dt / substeps
+    for _ in range(substeps):
+        x = rk4_step(f, x, u, dt_i)
+        if normalize == "step":
+            x = base.normalize_quaternion_state(x)
+    return x
+
+
+def make_step_fn(params, *, substeps: int = 1,
+                 normalize: str = "none") -> Callable:
+    """Bind integrator options; returns ``step(x, u, dt) -> x_next``."""
+    def fn(x, u, dt):
+        return step(params, x, u, dt, substeps=substeps, normalize=normalize)
+
+    return fn

@@ -1,0 +1,187 @@
+"""Trim search: a batched, projected Levenberg-Marquardt Gauss-Newton
+solve of ‖v̇‖² + ‖ω̇‖² (+ an airspeed target) over the decision vector
+z = [v_ned(3), rotvec(3), aileron, elevator, rudder, com(3)].
+
+Orientation is a rotation vector, so the unit-quaternion constraint
+vanishes; body rates are pinned to 0; box constraints are projections.
+Every start of a multistart is one row of one batched solve.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from aircraft_tpu_torch.dynamics import aircraft as ac
+from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+from aircraft_tpu_torch.ops import quaternion as quat
+from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
+
+_NZ = 12
+
+# centre and spread of the random start cloud of multistart_trim
+START_MID = (50.0, 0.0, 2.0, 0.0, 0.05, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+START_SPREAD = (10.0, 1.0, 3.0, 0.05, 0.1, 0.05, 1.0, 1.0, 1.0, 0.1, 0.02,
+                0.02)
+
+
+class TrimResult(NamedTuple):
+    state: torch.Tensor     # (..., 13) trimmed state
+    control: torch.Tensor   # (..., 10) trimmed control incl. CoM
+    residual: torch.Tensor  # ‖[v̇, ω̇]‖ at the trim point
+    converged: torch.Tensor
+
+
+def _unpack(z, base_pos):
+    v = z[..., 0:3]
+    q = quat.expmap(z[..., 3:6])
+    zero = torch.zeros_like(z[..., :1])
+    controls = torch.cat([z[..., 6:9], zero, zero, zero, zero, z[..., 9:12]],
+                         dim=-1)
+    state = torch.cat([base_pos.expand(v.shape), v, q, zero, zero, zero],
+                      dim=-1)
+    return state, controls
+
+
+def _residual(params, z, base_pos, target_airspeed, w_speed):
+    state, controls = _unpack(z, base_pos)
+    xdot = ac.state_derivative(params, state, controls)
+    r = torch.cat([xdot[..., 3:6], xdot[..., 10:13]], dim=-1)
+    if target_airspeed is not None:
+        speed = torch.sqrt(torch.sum(state[..., 3:6] ** 2, dim=-1))
+        r = torch.cat([r, (w_speed * (speed - target_airspeed))[..., None]],
+                      dim=-1)
+    return r
+
+
+def solve_trim(params: AircraftParams, z0: torch.Tensor, bounds,
+               target_airspeed: Optional[float] = None, *,
+               base_pos: Optional[torch.Tensor] = None, iters: int = 60,
+               w_speed: float = 1.0) -> TrimResult:
+    """Projected Levenberg-Marquardt from each row of z0 (S, 12)."""
+    dev, dt = z0.device, z0.dtype
+    if base_pos is None:
+        base_pos = torch.tensor([0.0, 0.0, -200.0], dtype=dt, device=dev)
+    lb, ub = (torch.as_tensor(b, dtype=dt, device=dev) for b in bounds)
+
+    def res1(z):
+        return _residual(params, z, base_pos, target_airspeed, w_speed)
+
+    eye = torch.eye(_NZ, dtype=dt, device=dev)
+    z = z0
+    lam = torch.full(z0.shape[:1], 1e-3, dtype=dt, device=dev)
+    for _ in range(iters):
+        r = res1(z)
+        J = batched_jacfwd(res1, z)
+        Jt = J.transpose(-1, -2)
+        H = Jt @ J + lam[:, None, None] * eye
+        dz = -torch.linalg.solve(H, (Jt @ r[..., None]))[..., 0]
+        z_new = torch.minimum(torch.maximum(z + dz, lb), ub)
+        r_new = res1(z_new)
+        improved = torch.sum(r_new * r_new, -1) < torch.sum(r * r, -1)
+        z = torch.where(improved[:, None], z_new, z)
+        lam = torch.where(improved, torch.clamp_min(lam * 0.5, 1e-10),
+                          lam * 4.0)
+    r = res1(z)
+    rnorm = torch.sqrt(torch.sum(r[..., :6] ** 2, dim=-1))
+    state, control = _unpack(z, base_pos)
+    return TrimResult(state=state, control=control, residual=rnorm,
+                      converged=rnorm < 1e-3)
+
+
+def default_trim_bounds(control_envelope=None):
+    """(lb, ub) numpy bounds on the trim decision vector: airspeed through
+    the velocity box, controls and CoM from the envelope when given."""
+    lb = np.array([5.0, -20.0, -20.0, -1.0, -1.0, -np.pi, -5.0, -5.0, -5.0,
+                   -0.5, -0.1, -0.1], np.float32)
+    ub = np.array([100.0, 20.0, 20.0, 1.0, 1.0, np.pi, 5.0, 5.0, 5.0, 0.5,
+                   0.1, 0.1], np.float32)
+    if control_envelope is not None:
+        clb, cub = control_envelope.bounds(10)
+        lb[6:9], lb[9:12] = clb[:3], clb[7:10]
+        ub[6:9], ub[9:12] = cub[:3], cub[7:10]
+    return lb, ub
+
+
+def start_cloud(n_starts: int, generator: torch.Generator,
+                device="cpu") -> torch.Tensor:
+    """(n_starts, 12) random trim starts around START_MID."""
+    noise = torch.randn((n_starts, _NZ), generator=generator,
+                        dtype=torch.float32)
+    z = (torch.tensor(START_MID) + torch.tensor(START_SPREAD) * noise)
+    return z.to(device)
+
+
+def _take(sols: TrimResult, idx) -> TrimResult:
+    return TrimResult(*(t[idx] for t in sols))
+
+
+def multistart_trim(params: AircraftParams, z0s: Optional[torch.Tensor] = None,
+                    *, n_starts: int = 64,
+                    target_airspeed: Optional[float] = 50.0, bounds=None,
+                    prefer_coordinated: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> TrimResult:
+    """Best trim over a cloud of starts: ``z0s`` (S, 12), or ``n_starts``
+    drawn from ``generator``.  ``prefer_coordinated`` picks, among the
+    converged starts, the one with the least sideslip instead of the least
+    residual.  When no start converges, a ladder of glide-angle seeds is
+    tried and every found point is re-solved without the speed penalty."""
+    dev = params.device
+    if bounds is None:
+        bounds = default_trim_bounds()
+    lb, ub = (torch.as_tensor(b, dtype=torch.float32, device=dev)
+              for b in bounds)
+    if z0s is None:
+        gen = generator if generator is not None else torch.Generator()
+        z0s = start_cloud(n_starts, gen, dev)
+    z0s = torch.minimum(torch.maximum(
+        torch.as_tensor(z0s, dtype=torch.float32, device=dev), lb), ub)
+    sols = solve_trim(params, z0s, (lb, ub), target_airspeed)
+
+    def lat(state):
+        v_body = quat.rotate_inv(state[..., 6:10], state[..., 3:6])
+        return torch.abs(v_body[..., 1])
+
+    if prefer_coordinated:
+        score = torch.where(sols.residual < 1e-3, lat(sols.state),
+                            1e6 + sols.residual)
+    else:
+        score = sols.residual
+    if not bool(torch.any(sols.residual < 1e-3)):
+        v_seed = 30.0 if target_airspeed is None else float(target_airspeed)
+        glide = []
+        for v_s in dict.fromkeys((v_seed, 35.0, 50.0)):
+            for g_deg in (2.0, 6.0, 10.0, 15.0, 20.0, 26.0, 32.0, 38.0):
+                g = np.deg2rad(g_deg)
+                for a0, de0 in ((0.0, 0.0), (0.08, -1.0), (0.0, 3.0)):
+                    glide.append([v_s * np.cos(g), 0.0, v_s * np.sin(g),
+                                  0.0, a0 - g, 0.0, 0.0, de0, 0.0,
+                                  0.0, 0.0, 0.0])
+        z0s_g = torch.minimum(torch.maximum(torch.tensor(
+            glide, dtype=torch.float32, device=dev), lb), ub)
+        sols_g = solve_trim(params, z0s_g, (lb, ub), target_airspeed)
+        sols = TrimResult(*(torch.cat([a, b], 0)
+                            for a, b in zip(sols, sols_g)))
+        z_found = torch.cat([sols.state[:, 3:6],
+                             quat.logmap(sols.state[:, 6:10]),
+                             sols.control[:, 0:3], sols.control[:, 7:10]],
+                            dim=-1)
+        polished = solve_trim(params, z_found, (lb, ub), None)
+        better = polished.residual < sols.residual
+        sols = TrimResult(*(
+            torch.where(better.reshape((-1,) + (1,) * (p.ndim - 1)), p, s)
+            for p, s in zip(polished, sols)))
+        speeds = torch.sqrt(torch.sum(sols.state[:, 3:6] ** 2, dim=-1))
+        dv = (torch.abs(speeds - target_airspeed)
+              if target_airspeed is not None else torch.zeros_like(speeds))
+        if prefer_coordinated:
+            score = torch.where(sols.residual < 1e-3,
+                                lat(sols.state) + 0.01 * dv,
+                                1e6 + sols.residual)
+        else:
+            score = torch.where(sols.residual < 1e-3, dv,
+                                1e6 + sols.residual)
+    return _take(sols, int(torch.argmin(score)))

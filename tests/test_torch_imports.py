@@ -1,0 +1,92 @@
+"""The port stands alone: every module of aircraft_tpu_torch imports with
+JAX made unimportable, no file of it imports jax, flax, optax or the JAX
+package, and its entry points refuse a missing card instead of falling
+back to the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "aircraft_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aircraft_tpu")
+
+
+def _modules():
+    import aircraft_tpu_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(
+        aircraft_tpu_torch.__path__, prefix="aircraft_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter whose `jax`, `flax` and `optax` are poisoned
+    (this process keeps its JAX: other test files share it)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'aircraft_tpu' or"
+        " m.startswith('aircraft_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py"])
+def test_no_forbidden_imports(path):
+    roots = set(_imported_roots(ROOT / path))
+    assert not roots & set(FORBIDDEN), sorted(roots & set(FORBIDDEN))
+
+
+def test_kernel_sources_ship_with_the_package():
+    names = {p.name for p in (PKG / "csrc").iterdir()}
+    assert {"window_physics.cuh", "window_backward.cu",
+            "window_forward.cu"} <= names
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    from aircraft_tpu_torch import bench, device
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: device.resolve_device(),
+                 lambda: load_mlp(),
+                 lambda: bench.build_problem()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert device.resolve_device("cpu").type == "cpu"
+
+
+def test_full_precision_matmuls():
+    import aircraft_tpu_torch  # noqa: F401  (sets the flags)
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
