@@ -1,18 +1,37 @@
-"""The serving-chain headline on the port: batched N=50 MHTT window solves
-of a fleet of gliders spread along the course track, chained window to
-window.
+"""The port's bench: the serving-chain headline and two kernel modes.
 
+``--mode headline`` (the default): batched N=50 MHTT window solves of a
+fleet of gliders spread along the course track, chained window to window.
 Each window solves the whole fleet's N=50, dt=0.01 window (3 AL rounds x
 12 inner iterations, Gauss-Newton curvature, 6 line-search candidates,
 per-row penalty ratchet), commits 20 knots, and carries the state, the
-shifted controls and the violation-gated duals to the next window.  On
-``cuda`` every inner iteration runs the two window kernels; on ``cpu``
-their plain versions.
+shifted controls and the violation-gated duals to the next window.
+``--solver fused`` runs every inner iteration as the two window kernels;
+``--solver ilqr`` runs ``solvers/ilqr.solve_batch`` (the reference's
+``BENCH_FUSED=0``), whose Quu solves take the batched-Cholesky kernel
+with ``--cuda-chol`` (``BENCH_PALLAS_CHOL=1``).  On ``cpu`` every kernel
+runs its plain version.
 
-    python -m aircraft_tpu_torch.bench [--batch 256] [--warmup 6] [--reps 3]
+    python -m aircraft_tpu_torch.bench [--solver fused|ilqr] [--cuda-chol]
+        [--batch 256] [--warmup 6] [--reps 3]
 
 prints one JSON line with the reference bench's headline fields plus
-``device``, ``fused_kernels`` and ``matmul_precision``.
+``device``, ``fused_kernels``, ``matmul_precision``, ``solver`` and the
+kernels' launch counts.
+
+``--mode kernel`` (the reference's ``BENCH_MODE=kernel``): the fused
+rollout kernel (both TPU names, ``make_fused_rollout`` and
+``make_fused_rollout_tiles``) against the plain PyTorch rollout on
+B=1024 copies of the configured initial state, N=50, dt=0.01, 10
+substeps, zero controls.  The plant is the trained ``mlp.npz``: the
+reference draws ``MLPCoeffParams.init(PRNGKey(0))``, which torch cannot
+replay.  ``--mode chol`` (``BENCH_MODE=chol``): the batched-Cholesky
+kernel on B=12800 SPD systems, m=7, k=8, built from
+``np.random.default_rng(0)`` as the reference builds them.  Each prints the
+reference mode's JSON keys; the keys it names ``xla_*`` hold the plain
+PyTorch rollout (kernel mode) or ``torch.linalg.cholesky_ex`` +
+``torch.cholesky_solve`` (chol mode).  Times are host wall clock around a
+synchronised call, the median of ``--reps`` (5 and 7 by default).
 """
 
 from __future__ import annotations
@@ -30,8 +49,12 @@ from aircraft_tpu_torch.control.mhtt import build_mhtt_ocp
 from aircraft_tpu_torch.device import matmul_precision, resolve_device
 from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
 from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+from aircraft_tpu_torch.kernels import cholesky as chol_mod
+from aircraft_tpu_torch.kernels import rollout as rollout_mod
 from aircraft_tpu_torch.kernels import window as window_mod
+from aircraft_tpu_torch.solvers import ilqr
 from aircraft_tpu_torch.solvers import ocp as ocp_mod
+from aircraft_tpu_torch.solvers import riccati
 from aircraft_tpu_torch.solvers.fused import make_fused_solver
 from aircraft_tpu_torch.solvers.trim import multistart_trim
 
@@ -113,10 +136,27 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def kernel_launches() -> dict:
+    """Launch counts of every kernel of the port, and the Riccati sweep's
+    numeric fallbacks."""
+    counts = {fn.__name__: fn.launches for mod in (window_mod, chol_mod,
+                                                   rollout_mod)
+              for fn in mod.KERNELS}
+    counts["chol_fallbacks"] = riccati.chol_fallbacks
+    return counts
+
+
 def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
-                 inner_iters=12, ls=6, warmup=6, reps=3, seed=0) -> dict:
+                 inner_iters=12, ls=6, warmup=6, reps=3, seed=0,
+                 solver="fused", cuda_chol=False) -> dict:
     """Cold window, `warmup` chained windows, then `reps` timed chained
-    windows; returns the headline record."""
+    windows; returns the headline record.  ``solver`` is ``"fused"`` (the
+    window kernels) or ``"ilqr"`` (``ilqr.solve_batch``, its Quu solves
+    on the batched-Cholesky kernel when ``cuda_chol``)."""
+    if solver not in ("fused", "ilqr"):
+        raise ValueError(f"solver={solver!r}")
+    if cuda_chol and solver != "ilqr":
+        raise ValueError("cuda_chol applies to solver='ilqr'")
     dev = resolve_device(device)
     t_setup = time.perf_counter()
     cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed)
@@ -126,7 +166,12 @@ def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
     us0 = u_trim.reshape(1, 1, 7).expand(batch, horizon, 7).contiguous()
     al0 = ocp_mod.init_al_state(ocp, z0s, us0[:, 0], horizon,
                                 mu0=config.penalty_init)
-    solve = make_fused_solver(ocp, spec, horizon, config)
+    if solver == "fused":
+        solve = make_fused_solver(ocp, spec, horizon, config)
+    else:
+        def solve(z, us, al):
+            return ilqr.solve_batch(ocp, z, us, config, al_inits=al,
+                                    cuda_chol=cuda_chol)
     setup_s = time.perf_counter() - t_setup
     commit = horizon - OVERLAP if horizon > OVERLAP else max(1, horizon // 2)
 
@@ -192,33 +237,137 @@ def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
         "median_violation": round(float(np.nanpercentile(viol, 50)), 6),
         "diverged_fraction": round(float(np.mean(viol > RESET_VIOL)), 4),
         "mean_cost": round(float(np.nanmean(cost)), 2),
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "fused_kernels": dev.type == "cuda",
+        "device": _device_name(dev),
+        "fused_kernels": solver == "fused" and dev.type == "cuda",
+        "solver": solver,
+        "cuda_chol": cuda_chol,
         "windows": 1 + warmup + reps,
         "horizon": horizon,
         "line_search_steps": ls,
-        "kernel_launches": {fn.__name__: fn.launches
-                            for fn in window_mod.KERNELS},
+        "kernel_launches": kernel_launches(),
+    }
+
+
+def _median_wall(fn, args, reps, dev):
+    walls = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def _device_name(dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def bench_kernel(device="cuda", *, batch=1024, horizon=N_HORIZON,
+                 substeps=10, reps=5) -> dict:
+    """The fused rollout kernel under both TPU names against the plain
+    PyTorch rollout (``xla_s``) on the same batch."""
+    dev = resolve_device(device)
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft,
+                                        coeff=load_mlp(device=dev), device=dev)
+    x0 = torch.as_tensor(np.asarray(cfg.waypoints.initial_state, np.float32),
+                         device=dev).expand(batch, 13).contiguous()
+    us = torch.zeros((batch, horizon, 7), dtype=torch.float32, device=dev)
+    kern = rollout_mod.make_fused_rollout(params, horizon=horizon, dt=DT,
+                                          substeps=substeps)
+    tiles = rollout_mod.make_fused_rollout_tiles(
+        params, horizon=horizon, dt=DT, substeps=substeps)
+    def plain(x0, us):
+        return rollout_mod.rollout_plain(kern.operands, x0, us)
+
+    out_k, out_t, out_x = kern(x0, us), tiles(x0, us), plain(x0, us)
+    max_diff = float(torch.max(torch.abs(out_k - out_x)))
+    max_diff_tiles = float(torch.max(torch.abs(out_t - out_x)))
+    tk = _median_wall(kern, (x0, us), reps, dev)
+    tt = _median_wall(tiles, (x0, us), reps, dev)
+    tx = _median_wall(plain, (x0, us), reps, dev)
+    best = min(tk, tt)
+    return {
+        "metric": "fused_rollout_speedup_vs_xla",
+        "value": round(tx / best, 3), "unit": "x",
+        "vs_baseline": round(tx / best, 3),
+        "kernel_lanes_s": round(tk, 5), "kernel_tiles_s": round(tt, 5),
+        "xla_s": round(tx, 5),
+        "batch": batch, "horizon": horizon, "substeps": substeps,
+        "max_diff": max_diff, "max_diff_tiles": max_diff_tiles,
+        "device": _device_name(dev),
+    }
+
+
+def chol_problem(batch=256 * 50, m=7, k=8, seed=0):
+    """The reference chol mode's SPD batch: A = W Wᵀ/m + 2I, rhs ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    W = rng.normal(0, 1, (batch, m, m)).astype(np.float32)
+    A = (np.einsum("bij,bkj->bik", W, W) / m
+         + 2.0 * np.eye(m)[None]).astype(np.float32)
+    rhs = rng.normal(0, 1, (batch, m, k)).astype(np.float32)
+    return A, rhs
+
+
+def library_cholesky_solve(A, rhs):
+    """One library factor-and-solve of the same systems: the yardstick the
+    chol mode names ``xla_s``."""
+    L, _ = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_solve(rhs, L)
+
+
+def bench_chol(device="cuda", *, batch=256 * 50, reps=7) -> dict:
+    """The batched-Cholesky kernel against a library solve (``xla_s``)."""
+    dev = resolve_device(device)
+    m, k = 7, 8   # Quu size and [Qu | Qux] width of the reference's mode
+    A, rhs = (torch.as_tensor(t, device=dev) for t in chol_problem(batch, m, k))
+    xk = chol_mod.batched_cholesky_solve(A, rhs)
+    xx = library_cholesky_solve(A, rhs)
+    max_diff = float(torch.max(torch.abs(xk - xx)))
+    tk = _median_wall(chol_mod.batched_cholesky_solve, (A, rhs), reps, dev)
+    tx = _median_wall(library_cholesky_solve, (A, rhs), reps, dev)
+    return {
+        "metric": "batched_tiny_cholesky_speedup_vs_xla",
+        "value": round(tx / tk, 3), "unit": "x",
+        "vs_baseline": round(tx / tk, 3),
+        "kernel_s": round(tk, 6), "xla_s": round(tx, 6),
+        "batch": batch, "m": m, "k": k, "max_diff": max_diff,
+        "device": _device_name(dev),
     }
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--mode", choices=("headline", "kernel", "chol"),
+                   default="headline")
+    p.add_argument("--solver", choices=("fused", "ilqr"), default="fused")
+    p.add_argument("--cuda-chol", action="store_true",
+                   help="ilqr solver: Quu solves on the batched-Cholesky kernel")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--batch", type=int, default=None,
+                   help="256 (headline), 1024 (kernel), 12800 (chol)")
     p.add_argument("--horizon", type=int, default=N_HORIZON)
+    p.add_argument("--substeps", type=int, default=10, help="kernel mode")
     p.add_argument("--al-iters", type=int, default=3)
     p.add_argument("--inner-iters", type=int, default=12)
     p.add_argument("--line-search", type=int, default=6)
     p.add_argument("--warmup", type=int, default=6)
-    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--reps", type=int, default=None,
+                   help="timed windows (3) or timed calls (kernel 5, chol 7)")
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
-    out = run_headline(a.device, batch=a.batch, horizon=a.horizon,
-                       al_iters=a.al_iters, inner_iters=a.inner_iters,
-                       ls=a.line_search, warmup=a.warmup, reps=a.reps,
-                       seed=a.seed)
+    if a.mode == "kernel":
+        out = bench_kernel(a.device, batch=a.batch or 1024, horizon=a.horizon,
+                           substeps=a.substeps, reps=a.reps or 5)
+    elif a.mode == "chol":
+        out = bench_chol(a.device, batch=a.batch or 256 * 50, reps=a.reps or 7)
+    else:
+        out = run_headline(a.device, batch=a.batch or 256, horizon=a.horizon,
+                           al_iters=a.al_iters, inner_iters=a.inner_iters,
+                           ls=a.line_search, warmup=a.warmup,
+                           reps=3 if a.reps is None else a.reps, seed=a.seed,
+                           solver=a.solver, cuda_chol=a.cuda_chol)
     print(json.dumps(out))
 
 

@@ -48,7 +48,7 @@ struct WinConst {
 #define WC_NAME(name, n) #name ":" #n ","
 #define WINDOW_EXPORTS(prefix)                                               \
   extern "C" const char* prefix##_layout() { return WINDOW_CONSTS(WC_NAME); } \
-  extern "C" const char* window_error_string(int err) {                      \
+  extern "C" const char* kernel_error_string(int err) {                      \
     return cudaGetErrorString((cudaError_t)err);                              \
   }
 

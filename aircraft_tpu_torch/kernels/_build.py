@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, under
 ``build/aircraft_tpu_torch/`` in the checkout, and loaded with ``ctypes``.
-The file name carries a hash of the sources, so an edit rebuilds and an
-unchanged tree reuses the library.  ``build_all`` starts one ``nvcc`` per
-source at once.  Nothing here runs at import time.
+Every library exports ``<name>_launch``, ``<name>_layout`` (the field
+layout of its by-value constants block, empty where it takes none) and
+``kernel_error_string``.  The file name carries a hash of the sources, so
+an edit rebuilds and an unchanged tree reuses the library.  ``build_all``
+starts one ``nvcc`` per source at once.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aircraft_tpu_torch"
-SOURCES = ("window_backward", "window_forward")
+SOURCES = ("window_backward", "window_forward", "batched_cholesky",
+           "fused_rollout")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: dict = {}
@@ -103,7 +107,7 @@ def library(name: str) -> ctypes.CDLL:
         layout.restype = ctypes.c_char_p
         lib.layout = [(f.split(":")[0], int(f.split(":")[1]))
                       for f in layout().decode().split(",") if f]
-        lib.error_string = lib.window_error_string
+        lib.error_string = lib.kernel_error_string
         lib.error_string.restype = ctypes.c_char_p
         lib.error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib

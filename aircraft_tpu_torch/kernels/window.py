@@ -57,12 +57,12 @@ from aircraft_tpu_torch.dynamics.coefficients import (
 )
 from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
 from aircraft_tpu_torch.ops.elementwise import clip
+from aircraft_tpu_torch.solvers.ilqr import FREEZE_PENALTY, line_search_alphas
 
 XD = 14          # augmented state [x(13), s]
 UD = 7           # controls
 NDIR = XD + UD   # linearisation basis
 A_MAX = 16       # line-search candidates the kernels take
-FREEZE_PENALTY = 1e7
 
 
 class WindowSpec(NamedTuple):
@@ -165,12 +165,6 @@ def n_residual_rows(ws: WindowSpec) -> int:
     return nr
 
 
-def line_search_alphas(steps: int) -> tuple:
-    """1, 1/2, ..., 2^-(steps-2), then 0 (the incumbent)."""
-    return tuple(float(a) for a in np.concatenate(
-        [np.logspace(0.0, -(steps - 2), steps - 1, base=2.0), [0.0]]))
-
-
 # ---------------------------------------------------------------------------
 # operands shared by the kernels and their plain versions
 # ---------------------------------------------------------------------------
@@ -208,25 +202,20 @@ class WindowOperands:
         return self.table.device
 
 
-def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
-                         alphas: tuple = line_search_alphas(6),
-                         device="cuda") -> WindowOperands:
-    """Resolve ``spec`` (``build_mhtt_ocp``'s ``spec_out``) for the
-    kernels.  Raises NotImplementedError on what the kernels do not
-    compute: wind channels, an unresolved envelope, coefficient models
-    other than the MLP and the default."""
-    ws, table = make_window_spec(spec, N)
-    params = spec["params"]
+def plant_consts(params):
+    """The plant fields of the kernels' constants block (geometry, the
+    parallel-axis inertia and its inverse, the coefficient model) and the
+    folded MLP weights (838 floats, or one zero for the default model) on
+    the parameters' device.  Raises NotImplementedError on coefficient
+    models other than the MLP and the default, and on plant switches the
+    kernels do not compute."""
     cp = params.coeff
     if not isinstance(cp, (MLPCoeffParams, DefaultCoeffParams)):
         raise NotImplementedError(
-            f"window kernels: coefficient model {type(cp).__name__}")
+            f"CUDA kernels: coefficient model {type(cp).__name__}")
     if (params.stall_scaling or params.thrust_enabled or params.com_in_control
             or not params.com_in_moments):
-        raise NotImplementedError("window kernels: plant switches")
-    if not 2 <= len(alphas) <= A_MAX:
-        raise ValueError(f"window kernels take 2..{A_MAX} step sizes")
-    dev = resolve_device(device)
+        raise NotImplementedError("CUDA kernels: plant switches")
     f = lambda t: t.detach().cpu().numpy().astype(np.float32)
     com = f(params.com)
     J = dyn_base.inertia_about_com(
@@ -234,7 +223,6 @@ def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
         params.com.detach().cpu()).numpy().astype(np.float32)
     Jinv = np.linalg.inv(J).astype(np.float32)
     is_mlp = isinstance(cp, MLPCoeffParams)
-    zeros7 = (0.0,) * 7
     consts = dict(
         mass=float(f(params.mass)), area=float(f(params.S)),
         span=float(f(params.b)), chord=float(f(params.c)),
@@ -243,7 +231,27 @@ def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
         J=tuple(map(float, J.ravel())), Jinv=tuple(map(float, Jinv.ravel())),
         is_mlp=float(is_mlp),
         dflt=tuple(default_coeff_vector(
-            cp if not is_mlp else DefaultCoeffParams())),
+            cp if not is_mlp else DefaultCoeffParams())))
+    mlp = (fold_mlp(cp) if is_mlp
+           else torch.zeros(1, dtype=torch.float32, device=params.device))
+    return consts, mlp.to(params.device).contiguous()
+
+
+def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
+                         alphas: tuple = line_search_alphas(6),
+                         device="cuda") -> WindowOperands:
+    """Resolve ``spec`` (``build_mhtt_ocp``'s ``spec_out``) for the
+    kernels.  Raises NotImplementedError on what the kernels do not
+    compute: wind channels, an unresolved envelope, coefficient models
+    other than the MLP and the default."""
+    ws, table = make_window_spec(spec, N)
+    if not 2 <= len(alphas) <= A_MAX:
+        raise ValueError(f"window kernels take 2..{A_MAX} step sizes")
+    dev = resolve_device(device)
+    plant, mlp = plant_consts(spec["params"])
+    zeros7 = (0.0,) * 7
+    consts = dict(
+        plant,
         N=float(N), substeps=float(ws.substeps), M=float(ws.M), dt=ws.dt,
         L=ws.L, progress_correction=ws.progress_correction,
         dim_mask=ws.dim_mask, v_ref=ws.v_ref, w_speed=ws.w_speed,
@@ -260,15 +268,13 @@ def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
         gain_clip=float(gain_clip), n_alpha=float(len(alphas)),
         alphas=tuple(alphas) + (0.0,) * (A_MAX - len(alphas)),
     )
-    mlp = (fold_mlp(cp).to(dev) if is_mlp
-           else torch.zeros(1, dtype=torch.float32, device=dev))
     return WindowOperands(
-        spec=ws, consts=consts, mlp=mlp.contiguous(),
+        spec=ws, consts=consts, mlp=mlp.to(dev).contiguous(),
         table=torch.as_tensor(table, device=dev).contiguous(),
         restfac=torch.tensor(ws.rest_factors, dtype=torch.float32,
                              device=dev),
-        alphas=tuple(alphas), is_mlp=is_mlp, nr=n_residual_rows(ws),
-        ng=n_ineq_rows(ws))
+        alphas=tuple(alphas), is_mlp=bool(plant["is_mlp"]),
+        nr=n_residual_rows(ws), ng=n_ineq_rows(ws))
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ compute raise NotImplementedError instead of being dropped silently.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -30,18 +30,8 @@ from aircraft_tpu_torch.kernels.window import (
 )
 from aircraft_tpu_torch.ops.autodiff import batched_grad_hessian
 from aircraft_tpu_torch.solvers import ocp as ocp_mod
+from aircraft_tpu_torch.solvers.ilqr import ILQRSolution, initial_rollout
 from aircraft_tpu_torch.solvers.ocp import ALState, OCPFunctions
-
-
-class ILQRSolution(NamedTuple):
-    xs: torch.Tensor          # (B, N+1, n)
-    us: torch.Tensor          # (B, N, m)
-    cost: torch.Tensor        # true (un-augmented) cost, (B,)
-    violation: torch.Tensor   # max constraint violation, (B,)
-    converged: torch.Tensor   # (B,) bool
-    iterations: torch.Tensor  # inner iterations used, (B,)
-    grad_norm: torch.Tensor   # final max |Qu|, (B,)
-    al: Optional[ALState] = None
 
 
 def check_fused_support(ocp: OCPFunctions, spec: dict,
@@ -96,25 +86,13 @@ def make_fused_solver(ocp: OCPFunctions, spec: dict, N: int,
         vx, vxx = batched_grad_hessian(cost, xT)
         return _san(vx), _san(vxx)
 
-    def initial_rollout(z0, us):
-        """Freeze-guarded rollout of the warm start."""
-        xs = [z0]
-        x = z0
-        for k in range(N):
-            x_next = ocp.step(x, us[:, k], torch.tensor(k, device=z0.device))
-            ok = (torch.isfinite(x_next).all(-1)
-                  & (torch.amax(torch.abs(x_next), dim=-1) < 1e6))
-            x = torch.where(ok[:, None], x_next, x)
-            xs.append(x)
-        return torch.stack(xs, dim=1)
-
     def solve(z0s: torch.Tensor, us_init: torch.Tensor,
               al_inits: Optional[ALState] = None) -> ILQRSolution:
         B = z0s.shape[0]
         dev = z0s.device
         al = (al_inits if al_inits is not None else ocp_mod.init_al_state(
             ocp, z0s, us_init[:, 0], N, mu0=config.penalty_init))
-        xs = initial_rollout(z0s, us_init).contiguous()
+        xs = initial_rollout(ocp, z0s, us_init)[0].contiguous()
         ws = us_init.contiguous()
         n_iters = torch.zeros(B, dtype=torch.int32, device=dev)
         grad_norm = torch.full((B,), float("inf"), device=dev)

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from aircraft_tpu_torch.device import resolve_device
 from aircraft_tpu_torch.ops.elementwise import clip
 
 
@@ -47,10 +48,11 @@ class OCPFunctions:
     control_unsquash: Optional[Callable] = None
 
 
-def make_squash_maps(lb, ub, *, margin: float = 0.999, device="cpu"):
+def make_squash_maps(lb, ub, *, margin: float = 0.999, device="cuda"):
     """(squash, unsquash) for a control box: u = mid + half·tanh(w)."""
-    lb = torch.as_tensor(lb, dtype=torch.float32, device=device)
-    ub = torch.as_tensor(ub, dtype=torch.float32, device=device)
+    dev = resolve_device(device)
+    lb = torch.as_tensor(lb, dtype=torch.float32, device=dev)
+    ub = torch.as_tensor(ub, dtype=torch.float32, device=dev)
     mid = 0.5 * (lb + ub)
     half = 0.5 * (ub - lb)
     safe_half = torch.where(half > 0, half, torch.ones_like(half))
@@ -66,7 +68,7 @@ def make_squash_maps(lb, ub, *, margin: float = 0.999, device="cpu"):
 
 
 def squash_controls(ocp: OCPFunctions, lb, ub, *, margin: float = 0.999,
-                    device="cpu"):
+                    device="cuda"):
     """Reparameterise the controls through the tanh squash so the box
     holds exactly; returns (squashed_ocp, squash, unsquash)."""
     squash, unsquash = make_squash_maps(lb, ub, margin=margin, device=device)
@@ -187,6 +189,14 @@ def al_terminal_cost(ocp: OCPFunctions, al: ALState, x):
          - 0.5 * torch.sum(al.lam_t_ineq ** 2, dim=-1) / mu)
     return (c + torch.sum(al.lam_t_eq * h, dim=-1)
             + 0.5 * mu * torch.sum(h * h, dim=-1))
+
+
+def al_total_cost(ocp: OCPFunctions, al: ALState, xs, us):
+    """AL cost of whole trajectories xs (B, N+1, n), us (B, N, m), (B,)."""
+    ks = torch.arange(us.shape[1], device=xs.device)
+    stage = _stage_al(ocp, al.lam_ineq, al.lam_eq, al.mu[:, None],
+                      al.mu_row[:, None], xs[:, :-1], us, ks)
+    return torch.sum(stage, dim=1) + al_terminal_cost(ocp, al, xs[:, -1])
 
 
 def true_cost(ocp: OCPFunctions, xs, us):

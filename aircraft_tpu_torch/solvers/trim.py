@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from aircraft_tpu_torch.dynamics import aircraft as ac
+from aircraft_tpu_torch.device import resolve_device
 from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
 from aircraft_tpu_torch.ops import quaternion as quat
 from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
@@ -106,12 +107,14 @@ def default_trim_bounds(control_envelope=None):
 
 
 def start_cloud(n_starts: int, generator: torch.Generator,
-                device="cpu") -> torch.Tensor:
-    """(n_starts, 12) random trim starts around START_MID."""
+                device="cuda") -> torch.Tensor:
+    """(n_starts, 12) random trim starts around START_MID, drawn from a
+    CPU ``generator`` and moved to ``device``."""
+    dev = resolve_device(device)
     noise = torch.randn((n_starts, _NZ), generator=generator,
                         dtype=torch.float32)
     z = (torch.tensor(START_MID) + torch.tensor(START_SPREAD) * noise)
-    return z.to(device)
+    return z.to(dev)
 
 
 def _take(sols: TrimResult, idx) -> TrimResult:

@@ -10,25 +10,42 @@ must pass or the script exits non-zero without a result line:
 2. build    - nvcc builds every kernel of csrc/ (one process per source,
               all at once) and prints ptxas' registers, shared memory and
               spills;
-3. kernels  - each kernel against its plain PyTorch version on the same
-              inputs: at full width (B=256, N=50, the bench knobs, states
-              from a rollout of the fleet) and on a small batch with
-              reversed-flow lanes under both coefficient models.  Gains
-              and line-search candidate costs within 1e-2 relative; the
-              chosen candidate, replayed knot by knot through the plain
-              knot function, within 2e-4 (controls: of the magnitudes
-              their feedback sum adds).
-              Times from CUDA events;
-4. main     - the serving-chain headline (python -m aircraft_tpu_torch.bench)
-              at full width: a cold window and three chained windows, with
-              every launch counter reset just before and read just after;
-5. report   - one JSON line of the kernels, the card's name and power
+3. window kernels - both window kernels against their plain PyTorch
+              versions on the same inputs: at full width (B=256, N=50, the
+              bench knobs, states from a rollout of the fleet) and on a
+              small batch with reversed-flow lanes under both coefficient
+              models.  Gains and line-search candidate costs within 1e-2
+              relative; the chosen candidate, replayed knot by knot through
+              the plain knot function, within 2e-4 (controls: of the
+              magnitudes their feedback sum adds);
+4. cholesky - the batched-Cholesky kernel against its plain version within
+              2e-3 (1 + |ref|): on the Quu and [Qu | Qux] of every knot of
+              one backward sweep of the B=256 fleet (m=7, k=15), and on the
+              chol bench mode's batch (B=12800, m=7, k=8), beside one
+              library factor-and-solve of the same systems;
+5. rollout  - the fused rollout kernel at B=1024, N=50, 10 substeps: every
+              knot replayed from the kernel's own previous state through
+              the plain step within 2e-4 (1 + |ref|), the whole
+              trajectory's difference printed (open-loop rounding grows);
+6. paths    - each path with every launch counter reset just before and
+              read just after: the fused serving chain (python -m
+              aircraft_tpu_torch.bench, a cold window and two chained
+              windows); one iLQR inner iteration timed piece by piece, with
+              the device's busy share from torch.profiler; the iLQR chain
+              (--solver ilqr --cuda-chol: a cold and a chained window, 50
+              Cholesky launches per backward pass, the numeric fallback on
+              at most a tenth of them, no window kernel); the kernel bench
+              mode (two timed calls each) and the chol bench mode;
+7. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
+
+Kernel times come from CUDA events.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,14 +80,18 @@ def smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def knot_flops(op) -> int:
-    """fp32 operations of one primal knot (window_physics.cuh::knot),
-    an FMA counted as two."""
-    mlp = 2 * (5 * 16 + 16 * 32 + 32 * 6) + 32 if op.is_mlp else 24
+def rk4_flops(is_mlp: bool) -> int:
+    """fp32 operations of one rk4_norm of window_physics.cuh, an FMA
+    counted as two."""
+    mlp = 2 * (5 * 16 + 16 * 32 + 32 * 6) + 32 if is_mlp else 24
     deriv = mlp + 160                       # flow, forces, Newton-Euler
-    rk4 = 4 * deriv + 13 * 9 + 12           # stages, combination, renorm
+    return 4 * deriv + 13 * 9 + 12          # stages, combination, renorm
+
+
+def knot_flops(op) -> int:
+    """fp32 operations of one primal knot (window_physics.cuh::knot)."""
     extras = 60 + 40 + 4 * op.nr + 6 * op.ng + 10
-    return op.spec.substeps * rk4 + extras
+    return op.spec.substeps * rk4_flops(op.is_mlp) + extras
 
 
 def backward_work(op, B):
@@ -98,6 +119,22 @@ def forward_work(op, B):
                  + op.table.numel() + N)
     floats_out = B * (N + 1) * 14 + B * N * 7 + B * (A + 3)
     return flops, 4 * (floats_in + floats_out)
+
+
+def cholesky_work(B, m, k):
+    """batched_cholesky.cu: the factor (a multiply-subtract as two, a
+    divide, a max and a square root as one each) and two substitutions per
+    column; A and rhs read once, X written once."""
+    factor = sum(2 * j + (2 if i == j else 1)
+                 for i in range(m) for j in range(i + 1))
+    flops = B * (factor + k * 2 * m * m)
+    return flops, 4 * B * (m * m + 2 * m * k)
+
+
+def rollout_work(B, N, substeps, mlp_floats):
+    """fused_rollout.cu: N knots of `substeps` RK4 steps per scenario."""
+    flops = B * N * substeps * rk4_flops(True)
+    return flops, 4 * (B * 13 + B * N * 7 + B * (N + 1) * 13 + mlp_floats)
 
 
 def bound_ms(work):
@@ -316,6 +353,188 @@ def reversed_batch(model, N=10, n_fwd=8, n_rev=8):
     return op, window_inputs(ocp, spec, z0s, us, config, N)
 
 
+CHOL_TOL = 2e-3
+ROLL_TOL = 2e-4
+
+
+def hold_cholesky(a, rhs, label, timing_reps=0):
+    """The batched-Cholesky kernel against its plain version on (a, rhs);
+    returns the max abs error and, with timing_reps, the kernel's, the
+    plain version's and one library factor-and-solve's times."""
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.kernels import cholesky
+
+    x = cholesky.batched_cholesky_solve(a, rhs)
+    xp = cholesky.cholesky_solve_plain(a, rhs)
+    torch.cuda.synchronize()
+    ok, err = close(x, xp, CHOL_TOL)
+    check(bool(torch.isfinite(x).all()), f"{label}: non-finite kernel output")
+    print(f"{label}: max abs err {err:.3e} (tol {CHOL_TOL} x (1+|ref|))",
+          flush=True)
+    check(ok, f"{label}: kernel and plain version differ by {err}")
+    out = {"err": err}
+    if timing_reps:
+        out["ms"] = cuda_ms(lambda: cholesky.batched_cholesky_solve(a, rhs),
+                            timing_reps)
+        out["plain_ms"] = cuda_ms(lambda: cholesky.cholesky_solve_plain(a, rhs),
+                                  timing_reps)
+        out["library_ms"] = cuda_ms(
+            lambda: bench.library_cholesky_solve(a, rhs), timing_reps)
+    return out
+
+
+def sweep_systems(ocp, z0s, us, inp):
+    """½(Quu+Quuᵀ) + reg·I and [Qu | Qux] of every knot of one backward
+    sweep of the fleet (z0s, us) on the kernel route, from the last knot
+    to the first as the sweep hands them to the kernel: a (N·B, 7, 7),
+    rhs (N·B, 7, 15).  The expansion point is window_inputs' rollout
+    `inp` with the multipliers after one update."""
+    import torch
+
+    from aircraft_tpu_torch.solvers import ilqr, riccati
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    N = us.shape[1]
+    xs, al = inp["xs"], ocp_mod.init_al_state(ocp, z0s, us[:, 0], N)
+    al = ocp_mod.update_multipliers(ocp, al, xs, us, 10.0, 1e8, row_adapt=True)
+    A, Bm = ilqr.linearize(ocp, xs, us)
+    quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize_gn(ocp, al, xs, us)]
+    captured = []
+    route = riccati.chol_solve_kernel
+
+    def capture(M, rhs, reg):
+        eye = torch.eye(M.shape[-1], device=M.device)
+        captured.append((0.5 * (M + M.transpose(-1, -2))
+                         + reg[:, None, None] * eye, rhs))
+        return route(M, rhs, reg)
+
+    riccati.chol_solve_kernel = capture
+    try:
+        riccati.backward_sequential(A, Bm, *quad, inp["reg"], cuda_chol=True)
+    finally:
+        riccati.chol_solve_kernel = route
+    check(len(captured) == N, f"sweep handed {len(captured)} solves, not {N}")
+    return (torch.cat([a for a, _ in captured]).contiguous(),
+            torch.cat([r for _, r in captured]).contiguous())
+
+
+def hold_rollout(B, N, substeps, label, timing_reps=0):
+    """The fused rollout kernel against the plain step: every knot of the
+    kernel's trajectory replayed from its own previous state, and the
+    whole plain rollout's difference printed."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+    from aircraft_tpu_torch.kernels import rollout as krollout
+    from aircraft_tpu_torch.solvers import integrators
+
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft,
+                                        coeff=load_mlp(device="cuda"),
+                                        device="cuda")
+    x0 = torch.as_tensor(np.asarray(cfg.waypoints.initial_state, np.float32),
+                         device="cuda").expand(B, 13).contiguous()
+    # the kernel mode's zero controls, plus small surface deflections so
+    # every control channel reaches the MLP
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    us = 0.5 * torch.rand((B, N, 7), device="cuda", generator=gen) - 0.25
+    us[..., 3:6] = 0.0
+    op = krollout.make_rollout_operands(params, horizon=N, dt=bench.DT,
+                                        substeps=substeps)
+    xs = krollout.fused_rollout(op, x0, us)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(xs).all()), f"{label}: non-finite states")
+    step = integrators.make_step_fn(params, substeps=substeps, normalize="step")
+    nxt = step(xs[:, :-1].reshape(-1, 13), us.reshape(-1, 7), bench.DT)
+    ok, err = close(xs[:, 1:].reshape(-1, 13), nxt, ROLL_TOL)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = krollout.rollout_plain(op, x0, us)   # one call: seconds of launches
+    stop.record()
+    torch.cuda.synchronize()
+    whole = float(torch.max(torch.abs(xs - plain)))
+    print(f"{label}: every knot replayed through the plain step: max abs err "
+          f"{err:.3e} (tol {ROLL_TOL} x (1+|ref|)); whole-trajectory max abs "
+          f"difference from the plain rollout {whole:.3e}", flush=True)
+    check(ok, f"{label}: a knot differs from the plain step by {err}")
+    out = {"err": err, "op": op}
+    if timing_reps:
+        out["ms"] = cuda_ms(lambda: krollout.fused_rollout(op, x0, us),
+                            timing_reps)
+        out["plain_ms"] = start.elapsed_time(stop)
+    return out
+
+
+def ilqr_breakdown(ocp, z0s, us, config):
+    """Host wall time of each piece of one inner iteration of the iLQR
+    solver at the fleet's shape (the second of two runs, after lazy
+    initialisation), the device's busy share over that iteration (the
+    kernels' summed durations in torch.profiler's trace over the wall;
+    None where the profiler saw no device time) and the number of device
+    kernels it ran."""
+    import torch
+
+    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    B, N = us.shape[:2]
+    xs, _ = ilqr.initial_rollout(ocp, z0s, us)
+    al = ocp_mod.init_al_state(ocp, z0s, us[:, 0], N, mu0=config.penalty_init)
+    reg = torch.full((B,), config.reg_init, device=z0s.device)
+    alphas = torch.tensor(ilqr.line_search_alphas(config.line_search_steps),
+                          device=z0s.device)
+
+    def iteration(times):
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            return r
+
+        timed("al_total_cost", lambda: ocp_mod.al_total_cost(ocp, al, xs, us))
+        A, Bm = timed("linearize", lambda: ilqr.linearize(ocp, xs, us))
+        quad = timed("quadraticize_gn", lambda: [
+            ilqr._san(t, 1e8) for t in ilqr.quadraticize_gn(ocp, al, xs, us)])
+        K, kff, *_ = timed("backward_kernel_route", lambda: ilqr.backward_pass(
+            A, Bm, *quad, reg, cuda_chol=True))
+        timed("backward_reference_route",
+              lambda: ilqr.backward_pass(A, Bm, *quad, reg))
+        timed("forward_pass", lambda: ilqr.forward_pass(
+            ocp, al, xs, us, K, kff, alphas))
+
+    iteration({})
+    times = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        iteration(times)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy = device_us * 1e-6 / wall if device_us > 0 else None
+    return times, wall, busy, len(kernels)
+
+
+def reset_all_counts():
+    from aircraft_tpu_torch.kernels import cholesky, rollout, window
+    from aircraft_tpu_torch.solvers import riccati
+
+    for mod in (window, cholesky, rollout):
+        mod.reset_launch_counts()
+    riccati.reset_counts()
+
+
 def main() -> int:
     import torch
 
@@ -349,7 +568,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {name}: {line.strip()}")
 
-    phase("kernels at full width")
+    phase("window kernels at full width")
     cfg, params, ocp, track, v_ref, spec = bench.build_problem("cuda")
     config = bench.headline_config()
     B, N = 256, bench.N_HORIZON
@@ -363,37 +582,125 @@ def main() -> int:
     work = {"window_backward": backward_work(op, B),
             "window_forward": forward_work(op, B)}
 
-    phase("kernels on reversed-flow lanes, both coefficient models")
+    phase("window kernels on reversed-flow lanes, both coefficient models")
     for model in ("nn", "default"):
         op_s, inp_s = reversed_batch(model)
         hold_kernels(op_s, inp_s, f"B=16 N=10 {model} reversed")
 
-    phase("main path")
-    win.reset_launch_counts()
-    head = bench.run_headline("cuda", batch=256, warmup=1, reps=2)
-    launches = {fn.__name__: fn.launches for fn in win.KERNELS}
+    phase("batched cholesky")
+    a, rhs = sweep_systems(ocp, z0s, us, inp)
+    chol = hold_cholesky(a[:B], rhs[:B], f"sweep, last knot B={B} m=7 k=15",
+                         timing_reps=200)
+    chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15")
+    A_cm, rhs_cm = (torch.as_tensor(t, device="cuda")
+                    for t in bench.chol_problem())
+    chol_cm = hold_cholesky(A_cm, rhs_cm, "chol mode B=12800 m=7 k=8",
+                            timing_reps=50)
+    work["batched_cholesky"] = cholesky_work(B, 7, 15)
+    cm_bound = bound_ms(cholesky_work(A_cm.shape[0], 7, 8))
+    print(f"chol mode batch: kernel {chol_cm['ms']:.4f} ms, plain "
+          f"{chol_cm['plain_ms']:.4f} ms, library {chol_cm['library_ms']:.4f} "
+          f"ms, bound {cm_bound[0]:.5f} ms ({cm_bound[1]})", flush=True)
+    print(f"sweep knot batch B={B}: kernel {chol['ms']:.4f} ms, plain "
+          f"{chol['plain_ms']:.4f} ms, library {chol['library_ms']:.4f} ms",
+          flush=True)
+
+    phase("fused rollout")
+    roll = hold_rollout(1024, N, 10, "B=1024 N=50 ss=10", timing_reps=10)
+    work["fused_rollout"] = rollout_work(1024, N, 10, roll["op"].mlp.numel())
+
+    phase("path: fused serving chain")
+    reset_all_counts()
+    head = bench.run_headline("cuda", batch=256, warmup=1, reps=1)
+    counts = bench.kernel_launches()
     print(json.dumps(head), flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"main path never launched {name}")
+    for name in ("window_backward", "window_forward"):
+        check(counts[name] > 0, f"fused chain never launched {name}")
     check(head["finite_fraction"] == 1.0,
-          f"finite_fraction {head['finite_fraction']}")
-    check(head["fused_kernels"], "main path did not run the kernels")
+          f"fused chain finite_fraction {head['finite_fraction']}")
+    check(head["fused_kernels"], "fused chain did not run the kernels")
+    launches = {name: counts[name] for name in ("window_backward",
+                                                "window_forward")}
+
+    phase("iLQR inner iteration, piece by piece")
+    times, wall, busy, n_launch = ilqr_breakdown(ocp, z0s, us, config)
+    print("one inner iteration at B=256 N=50 (host wall, s): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()})
+          + f"; profiled iteration wall {wall:.3f} s, device busy share "
+          + (f"{busy:.3f}" if busy is not None else "not measured (the "
+             "profiler saw no device time)")
+          + f", {n_launch} kernel launches", flush=True)
+
+    phase("path: iLQR chain on the Cholesky kernel")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    ilqr_head = bench.run_headline("cuda", batch=256, warmup=0, reps=1,
+                                   solver="ilqr", cuda_chol=True)
+    ilqr_wall = time.perf_counter() - t0
+    counts = bench.kernel_launches()
+    print(json.dumps(ilqr_head), flush=True)
+    passes = ilqr_head["windows"] * config.max_al_iters * config.max_inner_iters
+    n_chol = counts["batched_cholesky_solve"]
+    print(f"iLQR chain: {ilqr_head['windows']} windows in {ilqr_wall:.1f} s "
+          f"(cold window and set-up {ilqr_head['compile_s']} s, chained "
+          f"window {ilqr_head['wall_s_per_batch']} s); {passes} backward "
+          f"passes; cholesky launches {n_chol}; chol_fallbacks "
+          f"{counts['chol_fallbacks']}; gate "
+          f"{ilqr_head['feasibility_gate_95pct_1e2_passed']} "
+          f"(converged_fraction_1e2 {ilqr_head['converged_fraction_1e2']})",
+          flush=True)
+    check(n_chol == N * passes,
+          f"iLQR chain: {n_chol} Cholesky launches, expected {N * passes}")
+    check(counts["chol_fallbacks"] <= n_chol / 10,
+          f"iLQR chain: the fallback replaced the kernel on "
+          f"{counts['chol_fallbacks']} of {n_chol} calls")
+    check(counts["window_backward"] == counts["window_forward"] == 0,
+          "iLQR chain launched a window kernel")
+    check(ilqr_head["finite_fraction"] == 1.0,
+          f"iLQR chain finite_fraction {ilqr_head['finite_fraction']}")
+    launches["batched_cholesky"] = n_chol
+
+    phase("path: bench modes")
+    reset_all_counts()
+    kmode = bench.bench_kernel("cuda", reps=2)   # the plain rollout takes seconds
+    counts = bench.kernel_launches()
+    print(json.dumps(kmode), flush=True)
+    check(counts["fused_rollout"] > 0, "kernel mode never launched fused_rollout")
+    launches["fused_rollout"] = counts["fused_rollout"]
+    reset_all_counts()
+    cmode = bench.bench_chol("cuda")
+    counts = bench.kernel_launches()
+    print(json.dumps(cmode), flush=True)
+    check(counts["batched_cholesky_solve"] > 0,
+          "chol mode never launched batched_cholesky_solve")
+    check(math.isfinite(kmode["max_diff"]) and cmode["max_diff"] < CHOL_TOL,
+          "bench modes: a non-finite rollout or a Cholesky difference "
+          f"{cmode['max_diff']}")
 
     phase("report")
+    rows = (
+        ("window_backward", "aircraft_tpu/kernels/window_kernel.py:482",
+         full["backward_err"], full["backward_ms"], full["backward_plain_ms"],
+         None),
+        ("window_forward", "aircraft_tpu/kernels/window_kernel.py:700",
+         full["forward_err"], full["forward_ms"], full["forward_plain_ms"],
+         None),
+        ("batched_cholesky", "aircraft_tpu/kernels/cholesky_kernel.py:68",
+         max(chol["err"], chol_all["err"], chol_cm["err"]), chol["ms"],
+         chol["plain_ms"], chol["library_ms"]),
+        ("fused_rollout", "aircraft_tpu/kernels/rollout_kernel.py:256, "
+         "aircraft_tpu/kernels/rollout_kernel.py:434",
+         roll["err"], roll["ms"], roll["plain_ms"], None),
+    )
     kernels = []
-    for name, replaces, key in (
-            ("window_backward", "aircraft_tpu/kernels/window_kernel.py:482",
-             "backward"),
-            ("window_forward", "aircraft_tpu/kernels/window_kernel.py:700",
-             "forward")):
+    for name, replaces, err, ms, plain_ms, lib_ms in rows:
         bms, by = bound_ms(work[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aircraft_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": full[f"{key}_err"], "ms": full[f"{key}_ms"],
-            "plain_ms": full[f"{key}_plain_ms"], "bound_ms": bms,
-            "bound_by": by, "library_ms": None})
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

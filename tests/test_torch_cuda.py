@@ -1,6 +1,7 @@
 """The port on the card: its CUDA kernels against their plain versions
-(``-m gpu``, skipped without a card), and ``chip_smoke.py``'s refusal to
-report a result where there is no card or no package.
+(``-m gpu``, skipped without a card; small batches with an odd B, not a
+multiple of 32 or 128), and ``chip_smoke.py``'s refusal to report a
+result where there is no card or no package.
 
 Nothing here imports JAX, so the machine with the card, which has no JAX,
 runs this file on its own:
@@ -36,6 +37,70 @@ def test_cuda_kernels_match_plain_versions(model):
     op, inp = chip_smoke.reversed_batch(model)
     chip_smoke.hold_kernels(op, inp, f"{model} reversed")
     assert win.window_backward.launches == win.window_forward.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,k", [(37, 7, 15), (301, 7, 8), (5, 16, 1)])
+def test_cuda_cholesky_matches_plain_version(B, m, k):
+    """Random SPD systems (A = W Wᵀ/m + 2I), within 2e-3 (1 + |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from aircraft_tpu_torch.kernels import cholesky
+
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    W = torch.randn((B, m, m), device="cuda", generator=gen)
+    a = W @ W.transpose(-1, -2) / m + 2.0 * torch.eye(m, device="cuda")
+    rhs = torch.randn((B, m, k), device="cuda", generator=gen)
+    cholesky.reset_launch_counts()
+    chip_smoke.hold_cholesky(a, rhs, f"B={B} m={m} k={k}")
+    assert cholesky.batched_cholesky_solve.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,substeps", [(37, 5, 2), (129, 3, 10)])
+def test_cuda_rollout_matches_plain_version(B, N, substeps):
+    """Every knot of the kernel's trajectory replayed through the plain
+    step within 2e-4 (1 + |ref|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from aircraft_tpu_torch.kernels import rollout
+
+    rollout.reset_launch_counts()
+    chip_smoke.hold_rollout(B, N, substeps, f"B={B} N={N} ss={substeps}")
+    assert rollout.fused_rollout.launches == 1
+
+
+@pytest.mark.gpu
+def test_cuda_chol_sweep_launches_the_kernel_on_every_knot():
+    """The kernel route on CUDA tensors launches the kernel once per knot
+    and agrees with the reference route on a well-posed sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    Bz, N, n, m = 33, 6, 14, 7
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r = lambda *s: torch.randn(s, device="cuda", generator=gen)
+    eye = lambda d: torch.eye(d, device="cuda")
+    W, Wu = r(Bz, N, n, n), r(Bz, N, m, m)
+    args = (eye(n) + 0.3 * r(Bz, N, n, n), 0.3 * r(Bz, N, n, m), r(Bz, N, n),
+            r(Bz, N, m), W @ W.transpose(-1, -2) / n + eye(n),
+            Wu @ Wu.transpose(-1, -2) / m + eye(m), 0.1 * r(Bz, N, m, n),
+            r(Bz, n), eye(n).expand(Bz, n, n), torch.full((Bz,), 1e-6,
+                                                          device="cuda"))
+    cholesky.reset_launch_counts()
+    riccati.reset_counts()
+    out = riccati.backward_sequential(*args, cuda_chol=True)
+    ref = riccati.backward_sequential(*args)
+    assert cholesky.batched_cholesky_solve.launches == N
+    assert riccati.chol_fallbacks == 0
+    for o, p in zip(out[:2], ref[:2]):
+        assert float((o - p).abs().max()) <= 2e-3 * (1 + float(p.abs().max()))
 
 
 def _smoke(cwd: Path, env_extra: dict):

@@ -67,18 +67,29 @@ def test_no_forbidden_imports(path):
 
 def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"window_physics.cuh", "window_backward.cu",
-            "window_forward.cu"} <= names
+    assert {"window_physics.cuh", "window_backward.cu", "window_forward.cu",
+            "batched_cholesky.cu", "fused_rollout.cu"} <= names
+    from aircraft_tpu_torch.kernels import _build
+
+    assert {f"{n}.cu" for n in _build.SOURCES} <= names
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch import bench, device
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+    from aircraft_tpu_torch.solvers import ocp, trim
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    box = ([-1.0] * 7, [1.0] * 7)
     for call in (lambda: device.resolve_device(),
                  lambda: load_mlp(),
-                 lambda: bench.build_problem()):
+                 lambda: bench.build_problem(),
+                 lambda: bench.bench_kernel(),
+                 lambda: bench.bench_chol(),
+                 lambda: ocp.make_squash_maps(*box),
+                 lambda: ocp.squash_controls(ocp.OCPFunctions(
+                     step=None, stage_cost=None, terminal_cost=None), *box),
+                 lambda: trim.start_cloud(4, torch.Generator())):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
