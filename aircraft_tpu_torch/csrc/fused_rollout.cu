@@ -54,7 +54,7 @@ fused_rollout_kernel(const WinConst C, const float* __restrict__ x0,
     float u[UD];
 #pragma unroll
     for (int c = 0; c < UD; ++c) u[c] = ub[k * UD + c];
-    for (int s = 0; s < nsub; ++s) rk4_norm(C, sW, x, u, h);
+    for (int s = 0; s < nsub; ++s) rk4_norm(C, SharedMLP{sW}, x, u, h);
 #pragma unroll
     for (int i = 0; i < 13; ++i) out[(k + 1) * 13 + i] = x[i];
   }

@@ -18,6 +18,13 @@
 // JAX's: maximum/minimum/clip split the tangent evenly at a tie, abs has
 // derivative +1 at 0, sign and floor have none, a select takes the tangent
 // of the branch it picks, and the track segment index carries no tangent.
+//
+// The plant is also templated on its MLP evaluator (`Aero`): SharedMLP
+// reads the folded weights from shared memory in one thread; the forward
+// kernel passes one that spreads the MLP across a warp's lanes.  The plant
+// and the knot function are inlined whole, and RK4 runs its four stages as
+// a loop over one copy of the derivative, so a kernel holds one copy of
+// the plant's code and the compiler allocates its registers in one piece.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -179,6 +186,20 @@ __device__ __forceinline__ void mlp6(const float* __restrict__ W, const T in[5],
   }
 }
 
+// the MLP evaluated by one thread from the weights W (shared memory).  The
+// weights are read through an offset the compiler cannot see is 0, fresh
+// at every call: otherwise it hoists the 838 loop-invariant reads out of
+// the RK4 stage loop into registers, which spill to local memory.
+struct SharedMLP {
+  const float* __restrict__ W;
+  template <class T>
+  __device__ __forceinline__ void operator()(const T in[5], T out[6]) const {
+    int off;
+    asm volatile("mov.b32 %0, 0;" : "=r"(off));
+    mlp6(W + off, in, out);
+  }
+};
+
 // body-frame relative flow (+eps), its squared norm, alpha and beta
 template <class T>
 __device__ __forceinline__ void rel_flow(const WinConst& C, const T* x, T& vr0, T& vsq,
@@ -200,9 +221,9 @@ __device__ __forceinline__ void rel_flow(const WinConst& C, const T* x, T& vr0, 
 
 // xdot of the 13-state plant: relative flow, aero coefficients, forces and
 // moments with com x F, Newton-Euler with the precomputed J and J^-1
-template <class T>
-__device__ void derivative13(const WinConst& C, const float* __restrict__ W, const T* x,
-                             const T* u, T* out) {
+template <class T, class Aero>
+__device__ __forceinline__ void derivative13(const WinConst& C, const Aero& aero, const T* x,
+                                             const T* u, T* out) {
   T wx = x[10], wy = x[11], wz = x[12];
   T qx = x[6], qy = x[7], qz = x[8], qw = x[9];
   T vr0, vsq, alpha, beta;
@@ -211,7 +232,7 @@ __device__ void derivative13(const WinConst& C, const float* __restrict__ W, con
   T co[6];
   if (C.is_mlp[0] != 0.f) {
     T in[5] = {qbar, alpha, beta, u[0], u[1]};
-    mlp6(W, in, co);
+    aero(in, co);
     co[5] = co[5] + C.Cn_rudder[0] * 6.f * u[2] * DEG2RAD_F;
   } else {
     const float* d = C.dflt;  // CD0 CDa CL0 CLa CYb Clail Clp Cmel Cmq Cnrud Cnr
@@ -259,32 +280,30 @@ __device__ void derivative13(const WinConst& C, const float* __restrict__ W, con
   out[12] = Ji[6] * t0 + Ji[7] * t1 + Ji[8] * t2;
 }
 
-// one RK4 step of length h on x[0..12] in place, then renormalise q
-template <class T>
-__device__ void rk4_norm(const WinConst& C, const float* __restrict__ W, T* x, const T* u,
-                         float h) {
+// one RK4 step of length h on x[0..12] in place, then renormalise q.  The
+// four stages are a loop over one copy of the derivative: stage st reads
+// xt = x + c_st k_(st-1) and adds w_st k_st to acc (w = 1, 2, 2, 1), so
+// acc sums k1 + 2 k2 + 2 k3 + k4 in that order.
+template <class T, class Aero>
+__device__ __forceinline__ void rk4_norm(const WinConst& C, const Aero& aero, T* x, const T* u,
+                                         float h) {
   T k[13], acc[13], xt[13];
-  derivative13(C, W, x, u, k);
 #pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    acc[i] = k[i];
-    xt[i] = x[i] + (0.5f * h) * k[i];
+  for (int i = 0; i < 13; ++i) xt[i] = x[i];
+#pragma unroll 1
+  for (int st = 0; st < 4; ++st) {
+    derivative13(C, aero, xt, u, k);
+    const float c = st == 2 ? h : 0.5f * h;
+#pragma unroll
+    for (int i = 0; i < 13; ++i) {
+      if (st == 0) acc[i] = k[i];
+      else if (st == 3) acc[i] = acc[i] + k[i];
+      else acc[i] = acc[i] + 2.f * k[i];
+      xt[i] = x[i] + c * k[i];
+    }
   }
-  derivative13(C, W, xt, u, k);
 #pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    acc[i] = acc[i] + 2.f * k[i];
-    xt[i] = x[i] + (0.5f * h) * k[i];
-  }
-  derivative13(C, W, xt, u, k);
-#pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    acc[i] = acc[i] + 2.f * k[i];
-    xt[i] = x[i] + h * k[i];
-  }
-  derivative13(C, W, xt, u, k);
-#pragma unroll
-  for (int i = 0; i < 13; ++i) x[i] = x[i] + (h / 6.f) * (acc[i] + k[i]);
+  for (int i = 0; i < 13; ++i) x[i] = x[i] + (h / 6.f) * acc[i];
   T inv = 1.f / sqrt_(x[6] * x[6] + x[7] * x[7] + x[8] * x[8] + x[9] * x[9] + 1e-12f);
 #pragma unroll
   for (int i = 6; i < 10; ++i) x[i] = x[i] * inv;
@@ -319,11 +338,12 @@ __device__ __forceinline__ void track(const WinConst& C, const float* __restrict
 // Plant step, residual rows and inequality rows of one knot.  The next
 // state goes to xn[14], each residual row to sink.res(), each inequality
 // row to sink.ineq() (rows in envelope_ineq's order); returns the progress
-// reward `rest`.
-template <class T, class Sink>
-__device__ T knot(const WinConst& C, const float* __restrict__ W,
-                  const float* __restrict__ table, const T* x, const T* w, float rf, T* xn,
-                  Sink& sink) {
+// reward `rest`.  Everything that reads x comes before the plant step, so
+// only u and the integrated state are live while it runs.
+template <class T, class Aero, class Sink>
+__device__ __forceinline__ T knot(const WinConst& C, const Aero& aero,
+                                  const float* __restrict__ table, const T* x, const T* w,
+                                  float rf, T* xn, Sink& sink) {
   T u[UD];
 #pragma unroll
   for (int c = 0; c < UD; ++c) {
@@ -343,14 +363,6 @@ __device__ T knot(const WinConst& C, const float* __restrict__ W,
   T s_dot = (x[3] * td0 + x[4] * td1 + x[5] * td2) * Linv;
   T pe0 = (x[0] - pos[0]) * dm[0], pe1 = (x[1] - pos[1]) * dm[1], pe2 = (x[2] - pos[2]) * dm[2];
   T corr = (pe0 * td0 + pe1 * td1 + pe2 * td2) * Linv;
-
-  // plant step: RK4 x substeps of the 13-state plant, Euler progress
-#pragma unroll
-  for (int i = 0; i < 13; ++i) xn[i] = x[i];
-  const int nsub = (int)C.substeps[0];
-  const float h = C.dt[0] / C.substeps[0];
-  for (int sub = 0; sub < nsub; ++sub) rk4_norm(C, W, xn, u, h);
-  xn[13] = clip_(s + s_dot * C.dt[0] + C.progress_correction[0] * corr, 0.f, 1.05f);
 
   // residual rows (build_mhtt_ocp's stage_residuals order)
   const float* rc = C.rcoef;
@@ -393,7 +405,16 @@ __device__ T knot(const WinConst& C, const float* __restrict__ W,
   sink.ineq(-C.alpha_lim[0] - alpha);
   sink.ineq(x[2]);
 
-  return (-W_PROGRESS * s - W_PROGRESS_RATE * (0.5f * tanh_(s_dot / 0.5f))) * rf;
+  const T rest = (-W_PROGRESS * s - W_PROGRESS_RATE * (0.5f * tanh_(s_dot / 0.5f))) * rf;
+
+  // plant step: Euler progress, then RK4 x substeps of the 13-state plant
+  xn[13] = clip_(s + s_dot * C.dt[0] + C.progress_correction[0] * corr, 0.f, 1.05f);
+#pragma unroll
+  for (int i = 0; i < 13; ++i) xn[i] = x[i];
+  const int nsub = (int)C.substeps[0];
+  const float h = C.dt[0] / C.substeps[0];
+  for (int sub = 0; sub < nsub; ++sub) rk4_norm(C, aero, xn, u, h);
+  return rest;
 }
 
 // W_TERMINAL_ALIGN * |(p - track(s)) * mask + 1e-9| - 10 W_PROGRESS s

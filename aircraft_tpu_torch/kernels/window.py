@@ -1,20 +1,26 @@
 """The fused inner iteration of the MHTT window solve: two kernels, each
 with its plain PyTorch version, its wrapper and its launch counter.
 
-* ``window_backward`` (kernel ``csrc/window_backward.cu``) replaces the TPU
-  kernel ``aircraft_tpu/kernels/window_kernel.py::make_backward_kernel``.
+* ``window_backward`` (kernels in ``csrc/window_backward.cu``) replaces the
+  TPU kernel ``aircraft_tpu/kernels/window_kernel.py::make_backward_kernel``.
   Per scenario, for k = N-1..0: linearise the augmented knot step (RK4 x
   substeps of the 13-state plant + the Euler progress channel) on its 21
   basis directions (14 state + 7 control), assemble the residual
   Gauss-Newton AL curvature g = Jrᵀr + Jgᵀy + ∇rest, H = JrᵀJr + JgᵀWJg,
   and run one Riccati step with a 7x7 Cholesky whose pivot < -1e-6 flags
   the scenario.  Emits K (B,N,7,14), k (B,N,7), dv1, dv2, max|Qu| and fail.
+  On the card it is two launches: every knot linearised at once into a
+  (B, N, KNOT_FLOATS) buffer of [grad | H | F], then one Riccati sweep
+  per scenario.
 * ``window_forward`` (kernel ``csrc/window_forward.cu``) replaces
   ``::make_forward_kernel``: one closed-loop rollout per line-search step
   α, w = w_ref + α k + K (x - x_ref), summing the AL stage cost and the
   terminal cost; a knot whose next state is non-finite or exceeds 1e6
   freezes and costs FREEZE_PENALTY.  The best α per scenario (first
   strictly lower cost in candidate order) selects the stored trajectory.
+  On the card each rollout is one warp, and a scenario's reference sits in
+  its block's shared memory, which bounds the horizon
+  (``forward_smem_bytes``).
 
 The plain versions compute the same function batched over scenarios, the
 derivatives by ``torch.func`` forward mode; a wrapper takes its plain
@@ -29,7 +35,7 @@ their plain versions and the OCP callables read one spec.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,6 +69,8 @@ XD = 14          # augmented state [x(13), s]
 UD = 7           # controls
 NDIR = XD + UD   # linearisation basis
 A_MAX = 16       # line-search candidates the kernels take
+KNOT_FLOATS = NDIR + NDIR * NDIR + NDIR * XD   # [grad | H | F] of one knot
+SMEM_MAX = 232448   # bytes of shared memory one block may use on sm_90
 
 
 class WindowSpec(NamedTuple):
@@ -185,7 +193,9 @@ class WindowOperands:
     """Everything the two kernels read besides the per-call tensors: the
     host constants (plant, spec, line search), the folded MLP weights
     (838 floats, or one zero for the default model), the track table
-    (M, 12) and the rest factors (N,), on the solve's device."""
+    (M, 12) and the rest factors (N,), on the solve's device.  ``consts``
+    is read-only once built: ``packed`` keeps it packed per kernel
+    library, so a launch reuses the packed block."""
 
     spec: WindowSpec
     consts: dict            # name -> float or tuple of floats
@@ -196,6 +206,7 @@ class WindowOperands:
     is_mlp: bool
     nr: int
     ng: int
+    packed: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -669,13 +680,55 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _consts(op: WindowOperands, name: str):
+    """The library ``name`` and ``op.consts`` packed in its layout, packed
+    once per operands and library."""
+    from aircraft_tpu_torch.kernels import _build
+
+    lib = _build.library(name)
+    packed = op.packed.get(name)
+    if packed is None:
+        packed = op.packed[name] = _build.pack_consts(lib, op.consts)
+    return lib, packed
+
+
+def forward_smem_bytes(N: int, ng: int, A: int) -> int:
+    """Shared memory of one block of the forward kernel: the scenario's
+    xs, ws, K, k, lam and mu_row, then the pick's 2A + 1 words
+    (``forward_smem_floats`` in ``csrc/window_forward.cu``)."""
+    return 4 * ((N + 1) * XD + N * (UD + UD * XD + UD + ng) + ng + 2 * A + 1)
+
+
+def launch_backward(op: WindowOperands, args, quad, outs, phases: int = 3):
+    """Launch the backward kernels on the current stream: phase A (bit 1)
+    fills ``quad`` (B, N, KNOT_FLOATS) from ``args`` = (xs, ws, lam, mu,
+    reg, mu_row, vx, vxx), phase B (bit 2) sweeps it into ``outs`` = (K,
+    kff, dv1, dv2, qu_max, fail).  No checks and no count: the wrapper
+    ``window_backward`` does both."""
+    from aircraft_tpu_torch.kernels import _build
+
+    lib, consts = _consts(op, "window_backward")
+    if lib.window_backward_knot_floats() != KNOT_FLOATS:
+        raise RuntimeError("window_backward: the library's knot record is not "
+                           f"{KNOT_FLOATS} floats")
+    xs, ws, lam, mu, reg, mu_row, vx, vxx = args
+    err = lib.window_backward_launch(
+        consts, ctypes.c_int(len(consts)),
+        *(_ptr(t) for t in (xs, ws, lam, mu, reg, mu_row, vx, vxx, op.mlp,
+                            op.table, op.restfac, quad, *outs)),
+        ctypes.c_int(ws.shape[0]), ctypes.c_int(phases),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"window_backward launch failed: {_build.error_string(lib, err)}")
+
+
 def window_backward(op: WindowOperands, xs, ws, lam, mu, reg, mu_row, vx,
                     vxx):
     """Backward pass of one inner iteration.  xs (B,N+1,14), ws (B,N,7),
     lam (B,N,NG), mu (B,), reg (B,), mu_row (B,NG), vx (B,14),
     vxx (B,14,14) -> K (B,N,7,14), k (B,N,7), dv1, dv2, qu_max (B,) and
     fail (B,) bool.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/window_backward.cu``."""
+    launch the two kernels of ``csrc/window_backward.cu`` (one count)."""
     B, N = ws.shape[0], ws.shape[1]
     NG = op.ng
     for name, t, shape in (("xs", xs, (B, N + 1, XD)), ("ws", ws, (B, N, UD)),
@@ -689,25 +742,15 @@ def window_backward(op: WindowOperands, xs, ws, lam, mu, reg, mu_row, vx,
         return backward_plain(op, xs, ws, lam, mu, reg, mu_row, vx, vxx)
     if xs.device.type != "cuda":
         raise RuntimeError(f"window_backward: no kernel for {xs.device}")
-    from aircraft_tpu_torch.kernels import _build
-
-    lib = _build.library("window_backward")
-    K = torch.empty((B, N, UD, XD), dtype=torch.float32, device=xs.device)
-    kff = torch.empty((B, N, UD), dtype=torch.float32, device=xs.device)
-    dv1, dv2, qumax = (torch.empty(B, dtype=torch.float32, device=xs.device)
-                       for _ in range(3))
-    fail = torch.empty(B, dtype=torch.bool, device=xs.device)
-    consts = _build.pack_consts(lib, op.consts)
-    err = lib.window_backward_launch(
-        consts, ctypes.c_int(len(consts)),
-        *(_ptr(t) for t in (xs, ws, lam, mu, reg, mu_row, vx, vxx, op.mlp,
-                            op.table, op.restfac, K, kff, dv1, dv2, qumax,
-                            fail)),
-        ctypes.c_int(B), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"window_backward launch failed: {_build.error_string(lib, err)}")
+    dev = xs.device
+    quad = torch.empty((B, N, KNOT_FLOATS), dtype=torch.float32, device=dev)
+    outs = (torch.empty((B, N, UD, XD), dtype=torch.float32, device=dev),
+            torch.empty((B, N, UD), dtype=torch.float32, device=dev),
+            *(torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    launch_backward(op, (xs, ws, lam, mu, reg, mu_row, vx, vxx), quad, outs)
     window_backward.launches += 1
-    return K, kff, dv1, dv2, qumax, fail
+    return outs
 
 
 window_backward.launches = 0
@@ -718,7 +761,9 @@ def window_forward(op: WindowOperands, xs, ws, K, kff, lam, mu, mu_row):
     ws (B,N,7), K (B,N,7,14), kff (B,N,7), lam (B,N,NG), mu (B,),
     mu_row (B,NG) -> xs_new, ws_new and misc (B, A+3) = [A candidate
     costs, best cost, frozen knots of the best, best α].  CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/window_forward.cu``."""
+    the plain version; CUDA tensors launch ``csrc/window_forward.cu``.
+    Raises ValueError, on every device, for a horizon whose reference does
+    not fit the kernel's shared memory."""
     B, N = ws.shape[0], ws.shape[1]
     NG = op.ng
     A = len(op.alphas)
@@ -729,20 +774,24 @@ def window_forward(op: WindowOperands, xs, ws, K, kff, lam, mu, mu_row):
         _check(name, t, shape, op.device)
     if N != op.spec.N:
         raise ValueError(f"horizon {N}, operands built for {op.spec.N}")
+    smem = forward_smem_bytes(N, NG, A)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"window_forward: horizon {N} needs {smem} bytes of shared memory "
+            f"per block, more than the {SMEM_MAX} a block may use")
     if xs.device.type == "cpu":
         return forward_plain(op, xs, ws, K, kff, lam, mu, mu_row)
     if xs.device.type != "cuda":
         raise RuntimeError(f"window_forward: no kernel for {xs.device}")
     from aircraft_tpu_torch.kernels import _build
 
-    lib = _build.library("window_forward")
+    lib, consts = _consts(op, "window_forward")
     dev = xs.device
     xs_new = torch.empty((B, N + 1, XD), dtype=torch.float32, device=dev)
     ws_new = torch.empty((B, N, UD), dtype=torch.float32, device=dev)
     misc = torch.empty((B, A + 3), dtype=torch.float32, device=dev)
     cand_xs = torch.empty((B, A, N + 1, XD), dtype=torch.float32, device=dev)
     cand_ws = torch.empty((B, A, N, UD), dtype=torch.float32, device=dev)
-    consts = _build.pack_consts(lib, op.consts)
     err = lib.window_forward_launch(
         consts, ctypes.c_int(len(consts)),
         *(_ptr(t) for t in (xs, ws, K, kff, lam, mu, mu_row, op.mlp,

@@ -8,8 +8,8 @@ must pass or the script exits non-zero without a result line:
 
 1. device   - the card's name, and its name and power limit from nvidia-smi;
 2. build    - nvcc builds every kernel of csrc/ (one process per source,
-              all at once) and prints ptxas' registers, shared memory and
-              spills;
+              all at once) and prints ptxas' registers, stack, spills and
+              shared memory for every kernel entry;
 3. window kernels - both window kernels against their plain PyTorch
               versions on the same inputs: at full width (B=256, N=50, the
               bench knobs, states from a rollout of the fleet) and on a
@@ -17,7 +17,10 @@ must pass or the script exits non-zero without a result line:
               models.  Gains and line-search candidate costs within 1e-2
               relative; the chosen candidate, replayed knot by knot through
               the plain knot function, within 2e-4 (controls: of the
-              magnitudes their feedback sum adds);
+              magnitudes their feedback sum adds).  At full width it also
+              prints the resident warps per SM of each window kernel and
+              the time of each of window_backward's two launches (phase A,
+              the knot-parallel linearisation; phase B, the Riccati sweep);
 4. cholesky - the batched-Cholesky kernel against its plain version within
               2e-3 (1 + |ref|): on the Quu and [Qu | Qux] of every knot of
               one backward sweep of the B=256 fleet (m=7, k=15), and on the
@@ -166,6 +169,48 @@ def close(a, ref, tol):
         both_inf, torch.zeros_like(a), torch.abs(a - ref))))
 
 
+def backward_phase_ms(op, bw_args, reps):
+    """Times of window_backward's phase A and phase B, each launched alone
+    on the wrapper's buffers (no launch count)."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import window as win
+
+    B, N = bw_args[1].shape[:2]
+    dev = bw_args[0].device
+    quad = torch.empty((B, N, win.KNOT_FLOATS), device=dev)
+    outs = win.window_backward(op, *bw_args)
+    return {f"phase_{name}_ms": cuda_ms(
+        lambda: win.launch_backward(op, bw_args, quad, outs, phases=bit), reps)
+        for name, bit in (("a", 1), ("b", 2))}
+
+
+def occupancy(op, B):
+    """Resident warps per SM of each window kernel entry, from the CUDA
+    occupancy calculator for this build, beside the warps a call needs."""
+    import ctypes
+
+    import torch
+
+    from aircraft_tpu_torch.kernels import _build
+    from aircraft_tpu_torch.kernels import window as win
+
+    N, A = op.spec.N, len(op.alphas)
+    smem = win.forward_smem_bytes(N, op.ng, A)
+    wa, wb, wf = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    check(_build.library("window_backward").window_backward_occupancy(
+        ctypes.byref(wa), ctypes.byref(wb)) == 0, "occupancy query failed")
+    check(_build.library("window_forward").window_forward_occupancy(
+        A, smem, ctypes.byref(wf)) == 0, "occupancy query failed")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"resident warps per SM ({sms} SMs): window_backward phase A "
+          f"{wa.value} ({B * N} knot warps: {B * N / (sms * wa.value):.2f} "
+          f"waves), phase B {wb.value} ({B} scenario blocks); "
+          f"window_forward {wf.value} at A={A} and {smem} bytes of shared "
+          f"memory per block ({B * A} rollout warps: "
+          f"{B * A / (sms * wf.value):.2f} waves)", flush=True)
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -267,6 +312,10 @@ def hold_kernels(op, inp, label, timing_reps=0):
     if timing_reps:
         out["backward_ms"] = cuda_ms(lambda: win.window_backward(op, *bw_args),
                                      timing_reps)
+        out.update(backward_phase_ms(op, bw_args, timing_reps))
+        print(f"{label} window_backward: {out['backward_ms']:.4f} ms per call "
+              f"= phase A {out['phase_a_ms']:.4f} ms + phase B "
+              f"{out['phase_b_ms']:.4f} ms launched alone", flush=True)
         out["backward_plain_ms"] = cuda_ms(
             lambda: win.backward_plain(op, *bw_args), 2)
         out["forward_ms"] = cuda_ms(lambda: win.window_forward(op, *fw_args),
@@ -323,9 +372,10 @@ def replay_chosen(op, inp, K, kff, xs_n, ws_n, misc):
     return cost_err, x_err, w_err
 
 
-def reversed_batch(model, N=10, n_fwd=8, n_rev=8):
-    """A small batch on the bench problem: fleet states plus the same
-    states flying backwards through the air (body-frame u_rel < 0)."""
+def reversed_batch(model, N=10, n_fwd=8, n_rev=8, n_alpha=6):
+    """A small batch on the bench problem: n_fwd fleet states plus n_rev of
+    them flying backwards through the air (body-frame u_rel < 0), and
+    operands with n_alpha line-search candidates."""
     import torch
 
     from aircraft_tpu_torch import bench
@@ -338,7 +388,7 @@ def reversed_batch(model, N=10, n_fwd=8, n_rev=8):
         "cuda", coeff=coeff)
     config = bench.headline_config()
     z0s, trim = bench.fleet_states(params, track, n_fwd, v_ref)
-    rev = z0s.clone()
+    rev = z0s[:n_rev].clone()
     rev[:, 3:6] = -rev[:, 3:6]
     z0s = torch.cat([z0s, rev], dim=0)
     u_rel = v_frd_rel(params, z0s[:, :13], torch.zeros(z0s.shape[0], 7,
@@ -348,7 +398,7 @@ def reversed_batch(model, N=10, n_fwd=8, n_rev=8):
     gen = torch.Generator(device="cuda").manual_seed(1)
     us = (w0 + 0.05 * torch.randn((z0s.shape[0], N, 7), device="cuda",
                                   generator=gen)).contiguous()
-    op = win.make_window_operands(spec, N, alphas=win.line_search_alphas(6),
+    op = win.make_window_operands(spec, N, alphas=win.line_search_alphas(n_alpha),
                                   device="cuda")
     return op, window_inputs(ocp, spec, z0s, us, config, N)
 
@@ -566,7 +616,7 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name}: {line.strip()}", flush=True)
 
     phase("window kernels at full width")
     cfg, params, ocp, track, v_ref, spec = bench.build_problem("cuda")
@@ -578,6 +628,7 @@ def main() -> int:
     op = win.make_window_operands(spec, N, alphas=win.line_search_alphas(
         config.line_search_steps), device="cuda")
     inp = window_inputs(ocp, spec, z0s, us, config, N)
+    occupancy(op, B)
     full = hold_kernels(op, inp, "B=256 N=50 nn", timing_reps=20)
     work = {"window_backward": backward_work(op, B),
             "window_forward": forward_work(op, B)}

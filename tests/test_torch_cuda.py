@@ -40,6 +40,28 @@ def test_cuda_kernels_match_plain_versions(model):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("model", ["nn", "default"])
+@pytest.mark.parametrize("n_alpha", [2, 16])
+def test_cuda_window_kernels_at_edge_shapes(model, n_alpha):
+    """B=37 (19 forward, 18 reversed-flow lanes: no multiple of the four
+    knot warps per block of the backward kernel's first phase), N=7, and
+    the fewest and the most line-search candidates the forward kernel
+    takes (one block of 2 or 16 warps per scenario); one launch of each
+    wrapper per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from aircraft_tpu_torch.kernels import window as win
+
+    op, inp = chip_smoke.reversed_batch(model, N=7, n_fwd=19, n_rev=18,
+                                        n_alpha=n_alpha)
+    win.reset_launch_counts()
+    chip_smoke.hold_kernels(op, inp, f"{model} B=37 N=7 A={n_alpha}")
+    assert win.window_backward.launches == win.window_forward.launches == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,m,k", [(37, 7, 15), (301, 7, 8), (5, 16, 1)])
 def test_cuda_cholesky_matches_plain_version(B, m, k):
     """Random SPD systems (A = W Wᵀ/m + 2I), within 2e-3 (1 + |ref|)."""

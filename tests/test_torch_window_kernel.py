@@ -183,6 +183,24 @@ def test_wrapper_rejects_tensors_off_the_operands_device(case):
                            None, None, None, None, None)
 
 
+def test_forward_wrapper_refuses_a_horizon_beyond_shared_memory(case):
+    """The forward kernel holds a scenario's reference in one block's shared
+    memory: the headline horizon fits without opting in above 48 KB, and
+    the wrapper raises ValueError, CPU tensors included, for the first
+    horizon that does not fit in a block's 227 KB."""
+    ng, A = case["op"].ng, len(ALPHAS)
+    assert win.forward_smem_bytes(50, ng, A) <= 48 * 1024
+    n_big = next(n for n in range(1, 1000)
+                 if win.forward_smem_bytes(n, ng, A) > win.SMEM_MAX)
+    op = win.make_window_operands(case["pt"]["spec"], n_big, alphas=ALPHAS,
+                                  device="cpu")
+    z = lambda *s: torch.zeros(s)
+    with pytest.raises(ValueError, match="shared memory"):
+        win.window_forward(op, z(1, n_big + 1, 14), z(1, n_big, 7),
+                           z(1, n_big, 7, 14), z(1, n_big, 7),
+                           z(1, n_big, ng), torch.ones(1), torch.ones(1, ng))
+
+
 # ---------------------------------------------------------------------------
 # configurations the fused solver refuses
 # ---------------------------------------------------------------------------
