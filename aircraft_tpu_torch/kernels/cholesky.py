@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from aircraft_tpu_torch.kernels import _build
+
 MAX_M = 16
 
 
@@ -72,6 +74,20 @@ def _check(a: torch.Tensor, rhs: torch.Tensor) -> None:
             raise ValueError(f"{name}: on {t.device}, A on {a.device}")
 
 
+_launcher = None
+
+
+def _launch_fn():
+    """The library and its launcher, argument types set once per load."""
+    global _launcher
+    if _launcher is None:
+        lib = _build.library("batched_cholesky")
+        fn = lib.batched_cholesky_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        _launcher = lib, fn
+    return _launcher
+
+
 def batched_cholesky_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """X (B, m, k) with A X = rhs for SPD A (B, m, m).  CPU tensors take
     the plain version; CUDA tensors launch ``csrc/batched_cholesky.cu``."""
@@ -80,12 +96,11 @@ def batched_cholesky_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         return cholesky_solve_plain(a, rhs)
     if a.device.type != "cuda":
         raise RuntimeError(f"batched_cholesky_solve: no kernel for {a.device}")
-    from aircraft_tpu_torch.kernels import _build
-
-    lib = _build.library("batched_cholesky")
-    launch = lib.batched_cholesky_launch
-    launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    a, rhs = a.contiguous(), rhs.contiguous()
+    lib, launch = _launch_fn()
+    if not a.is_contiguous():
+        a = a.contiguous()
+    if not rhs.is_contiguous():
+        rhs = rhs.contiguous()
     B, m, k = rhs.shape
     x = torch.empty_like(rhs)
     err = launch(a.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, m, k,

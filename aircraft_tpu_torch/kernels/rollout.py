@@ -21,11 +21,12 @@ model is computed, as on the TPU: any other coefficient model raises.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from aircraft_tpu_torch.dynamics.coefficients import MLPCoeffParams
+from aircraft_tpu_torch.kernels import _build
 from aircraft_tpu_torch.kernels.window import plant_consts
 from aircraft_tpu_torch.solvers import integrators
 from aircraft_tpu_torch.solvers.rollout import batch_rollout
@@ -38,7 +39,9 @@ UD = 7    # controls
 class RolloutOperands:
     """What the kernel reads besides x0 and us: the constants block (plant
     fields, N, dt, substeps), the folded MLP weights (838 floats) on the
-    parameters' device, and the parameters for the plain version."""
+    parameters' device, and the parameters for the plain version.  The
+    constants are packed in the kernel's layout at the first launch and
+    kept (``packed``)."""
 
     params: object
     consts: dict
@@ -46,6 +49,7 @@ class RolloutOperands:
     horizon: int
     dt: float
     substeps: int
+    packed: object = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -80,6 +84,21 @@ def _kernel_consts(lib, consts: dict) -> dict:
             for name, n in lib.layout}
 
 
+_launcher = None
+
+
+def _launch_fn():
+    """The library and its launcher, argument types set once per load."""
+    global _launcher
+    if _launcher is None:
+        lib = _build.library("fused_rollout")
+        fn = lib.fused_rollout_launch
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+        _launcher = lib, fn
+    return _launcher
+
+
 def fused_rollout(op: RolloutOperands, x0: torch.Tensor,
                   us: torch.Tensor) -> torch.Tensor:
     """x0 (B, 13), us (B, N, 7) -> xs (B, N+1, 13).  CPU tensors take the
@@ -96,15 +115,15 @@ def fused_rollout(op: RolloutOperands, x0: torch.Tensor,
         return rollout_plain(op, x0, us)
     if x0.device.type != "cuda":
         raise RuntimeError(f"fused_rollout: no kernel for {x0.device}")
-    from aircraft_tpu_torch.kernels import _build
-
-    lib = _build.library("fused_rollout")
-    launch = lib.fused_rollout_launch
-    launch.argtypes = ([ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    x0, us = x0.contiguous(), us.contiguous()
+    lib, launch = _launch_fn()
+    if op.packed is None:
+        op.packed = _build.pack_consts(lib, _kernel_consts(lib, op.consts))
+    consts = op.packed
+    if not x0.is_contiguous():
+        x0 = x0.contiguous()
+    if not us.is_contiguous():
+        us = us.contiguous()
     xs = torch.empty((B, N + 1, XS), dtype=torch.float32, device=x0.device)
-    consts = _build.pack_consts(lib, _kernel_consts(lib, op.consts))
     err = launch(consts, len(consts), x0.data_ptr(), us.data_ptr(),
                  op.mlp.data_ptr(), xs.data_ptr(), B,
                  torch.cuda.current_stream().cuda_stream)

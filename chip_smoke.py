@@ -42,7 +42,13 @@ must pass or the script exits non-zero without a result line:
 7. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
-Kernel times come from CUDA events.
+Every kernel has two times.  `wrapper_ms` is CUDA events around
+back-to-back wrapper calls, per call: where the wrapper's host work
+outlasts its kernel, it is host time.  `device_ms` (the report's `ms`) is
+the kernel's own: the summed durations of its entries in a torch.profiler
+trace of the same calls, per call (K1's two entries summed); `share` is
+bound_ms / device_ms.  The library call has both too (`library_ms`,
+`library_device_ms`: every device activity of one call).
 """
 
 from __future__ import annotations
@@ -212,6 +218,9 @@ def occupancy(op, B):
 
 
 def cuda_ms(fn, reps):
+    """Wrapper time: CUDA events around `reps` back-to-back calls, per
+    call.  Where a call's host work outlasts its kernels, this is host
+    time."""
     import torch
 
     fn()
@@ -224,6 +233,38 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps, entries=None):
+    """Device time: the summed durations of the device activities of
+    `reps` calls in a torch.profiler trace, per call.  With `entries`
+    only the kernels whose name holds one of them count, and every call
+    must show each entry once; without, every device activity of the call
+    counts (a library call's kernels, copies and fills)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if entries is not None:
+        evs = [e for e in evs if any(n in e.name for n in entries)]
+        check(len(evs) == reps * len(entries),
+              f"profiler saw {len(evs)} launches of {entries} in {reps} calls")
+    check(len(evs) > 0, "the profiler saw no device time")
+    return sum(e.time_range.elapsed_us() for e in evs) * 1e-3 / reps
+
+
+K1_ENTRIES = ("window_linearize_kernel", "window_riccati_kernel")
+K2_ENTRIES = ("window_forward_kernel",)
+K5_ENTRIES = ("batched_cholesky_kernel",)
+K34_ENTRIES = ("fused_rollout_kernel",)
 
 
 def window_inputs(ocp, spec, z0s, us, config, N):
@@ -310,16 +351,21 @@ def hold_kernels(op, inp, label, timing_reps=0):
     out = {"backward_err": float(torch.max(torch.abs(K - Kp))),
            "forward_err": cost_err}
     if timing_reps:
-        out["backward_ms"] = cuda_ms(lambda: win.window_backward(op, *bw_args),
-                                     timing_reps)
+        bw = lambda: win.window_backward(op, *bw_args)
+        fw = lambda: win.window_forward(op, *fw_args)
+        out["backward_ms"] = cuda_ms(bw, timing_reps)
+        out["backward_device_ms"] = device_ms(bw, timing_reps, K1_ENTRIES)
         out.update(backward_phase_ms(op, bw_args, timing_reps))
-        print(f"{label} window_backward: {out['backward_ms']:.4f} ms per call "
-              f"= phase A {out['phase_a_ms']:.4f} ms + phase B "
-              f"{out['phase_b_ms']:.4f} ms launched alone", flush=True)
+        print(f"{label} window_backward: wrapper {out['backward_ms']:.4f} ms, "
+              f"device {out['backward_device_ms']:.4f} ms per call; phase A "
+              f"{out['phase_a_ms']:.4f} ms + phase B {out['phase_b_ms']:.4f} "
+              f"ms launched alone (wrapper)", flush=True)
         out["backward_plain_ms"] = cuda_ms(
             lambda: win.backward_plain(op, *bw_args), 2)
-        out["forward_ms"] = cuda_ms(lambda: win.window_forward(op, *fw_args),
-                                    timing_reps)
+        out["forward_ms"] = cuda_ms(fw, timing_reps)
+        out["forward_device_ms"] = device_ms(fw, timing_reps, K2_ENTRIES)
+        print(f"{label} window_forward: wrapper {out['forward_ms']:.4f} ms, "
+              f"device {out['forward_device_ms']:.4f} ms per call", flush=True)
         out["forward_plain_ms"] = cuda_ms(
             lambda: win.forward_plain(op, *fw_args), 2)
     return out
@@ -426,12 +472,20 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
     check(ok, f"{label}: kernel and plain version differ by {err}")
     out = {"err": err}
     if timing_reps:
-        out["ms"] = cuda_ms(lambda: cholesky.batched_cholesky_solve(a, rhs),
-                            timing_reps)
+        kern = lambda: cholesky.batched_cholesky_solve(a, rhs)
+        lib = lambda: bench.library_cholesky_solve(a, rhs)
+        out["ms"] = cuda_ms(kern, timing_reps)
+        out["device_ms"] = device_ms(kern, timing_reps, K5_ENTRIES)
         out["plain_ms"] = cuda_ms(lambda: cholesky.cholesky_solve_plain(a, rhs),
                                   timing_reps)
-        out["library_ms"] = cuda_ms(
-            lambda: bench.library_cholesky_solve(a, rhs), timing_reps)
+        out["library_ms"] = cuda_ms(lib, timing_reps)
+        out["library_device_ms"] = device_ms(lib, timing_reps)
+        out["bound"] = bound_ms(cholesky_work(*rhs.shape))
+        print(f"{label}: kernel device {out['device_ms']:.5f} ms, wrapper "
+              f"{out['ms']:.5f} ms; plain {out['plain_ms']:.4f} ms; library "
+              f"device {out['library_device_ms']:.5f} ms, call "
+              f"{out['library_ms']:.4f} ms; bound {out['bound'][0]:.6f} ms "
+              f"({out['bound'][1]})", flush=True)
     return out
 
 
@@ -516,9 +570,13 @@ def hold_rollout(B, N, substeps, label, timing_reps=0):
     check(ok, f"{label}: a knot differs from the plain step by {err}")
     out = {"err": err, "op": op}
     if timing_reps:
-        out["ms"] = cuda_ms(lambda: krollout.fused_rollout(op, x0, us),
-                            timing_reps)
+        kern = lambda: krollout.fused_rollout(op, x0, us)
+        out["ms"] = cuda_ms(kern, timing_reps)
+        out["device_ms"] = device_ms(kern, timing_reps, K34_ENTRIES)
         out["plain_ms"] = start.elapsed_time(stop)
+        print(f"{label}: kernel device {out['device_ms']:.4f} ms, wrapper "
+              f"{out['ms']:.4f} ms; plain rollout {out['plain_ms']:.1f} ms",
+              flush=True)
     return out
 
 
@@ -642,18 +700,17 @@ def main() -> int:
     a, rhs = sweep_systems(ocp, z0s, us, inp)
     chol = hold_cholesky(a[:B], rhs[:B], f"sweep, last knot B={B} m=7 k=15",
                          timing_reps=200)
-    chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15")
+    chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15",
+                             timing_reps=50)
     A_cm, rhs_cm = (torch.as_tensor(t, device="cuda")
                     for t in bench.chol_problem())
     chol_cm = hold_cholesky(A_cm, rhs_cm, "chol mode B=12800 m=7 k=8",
                             timing_reps=50)
     work["batched_cholesky"] = cholesky_work(B, 7, 15)
-    cm_bound = bound_ms(cholesky_work(A_cm.shape[0], 7, 8))
-    print(f"chol mode batch: kernel {chol_cm['ms']:.4f} ms, plain "
-          f"{chol_cm['plain_ms']:.4f} ms, library {chol_cm['library_ms']:.4f} "
-          f"ms, bound {cm_bound[0]:.5f} ms ({cm_bound[1]})", flush=True)
-    print(f"sweep knot batch B={B}: kernel {chol['ms']:.4f} ms, plain "
-          f"{chol['plain_ms']:.4f} ms, library {chol['library_ms']:.4f} ms",
+    print("batched_cholesky device ms: "
+          + json.dumps({"sweep_last_knot_B256_k15": chol["device_ms"],
+                        "sweep_all_knots_B12800_k15": chol_all["device_ms"],
+                        "chol_mode_B12800_k8": chol_cm["device_ms"]}),
           flush=True)
 
     phase("fused rollout")
@@ -729,29 +786,35 @@ def main() -> int:
           f"{cmode['max_diff']}")
 
     phase("report")
+    # (name, replaces, max abs err, wrapper ms, device ms, plain ms,
+    #  library ms, library device ms)
     rows = (
         ("window_backward", "aircraft_tpu/kernels/window_kernel.py:482",
-         full["backward_err"], full["backward_ms"], full["backward_plain_ms"],
-         None),
+         full["backward_err"], full["backward_ms"], full["backward_device_ms"],
+         full["backward_plain_ms"], None, None),
         ("window_forward", "aircraft_tpu/kernels/window_kernel.py:700",
-         full["forward_err"], full["forward_ms"], full["forward_plain_ms"],
-         None),
+         full["forward_err"], full["forward_ms"], full["forward_device_ms"],
+         full["forward_plain_ms"], None, None),
         ("batched_cholesky", "aircraft_tpu/kernels/cholesky_kernel.py:68",
          max(chol["err"], chol_all["err"], chol_cm["err"]), chol["ms"],
-         chol["plain_ms"], chol["library_ms"]),
+         chol["device_ms"], chol["plain_ms"], chol["library_ms"],
+         chol["library_device_ms"]),
         ("fused_rollout", "aircraft_tpu/kernels/rollout_kernel.py:256, "
          "aircraft_tpu/kernels/rollout_kernel.py:434",
-         roll["err"], roll["ms"], roll["plain_ms"], None),
+         roll["err"], roll["ms"], roll["device_ms"], roll["plain_ms"], None,
+         None),
     )
     kernels = []
-    for name, replaces, err, ms, plain_ms, lib_ms in rows:
+    for name, replaces, err, wms, dms, plain_ms, lib_ms, lib_dms in rows:
         bms, by = bound_ms(work[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aircraft_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+            "max_abs_err": err, "ms": dms, "device_ms": dms,
+            "wrapper_ms": wms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "share": bms / dms, "library_ms": lib_ms,
+            "library_device_ms": lib_dms})
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
