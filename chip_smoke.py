@@ -236,11 +236,13 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, entries=None):
-    """Device time: the summed durations of the device activities of
-    `reps` calls in a torch.profiler trace, per call.  With `entries`
-    only the kernels whose name holds one of them count, and every call
-    must show each entry once; without, every device activity of the call
-    counts (a library call's kernels, copies and fills)."""
+    """Device time: the durations of the device activities of `reps`
+    calls in a torch.profiler trace, per call.  With `entries` only the
+    kernels whose name holds one of them count, once per call each;
+    without, every device activity of the call counts (a library call's
+    kernels, copies and fills).  The trace may drop a few records of a
+    run of short launches, so each name counts as its mean duration times
+    its launches per call (its records over the calls, rounded)."""
     import torch
 
     fn()
@@ -251,14 +253,22 @@ def device_ms(fn, reps, entries=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if entries is not None:
-        evs = [e for e in evs if any(n in e.name for n in entries)]
-        check(len(evs) == reps * len(entries),
-              f"profiler saw {len(evs)} launches of {entries} in {reps} calls")
-    check(len(evs) > 0, "the profiler saw no device time")
-    return sum(e.time_range.elapsed_us() for e in evs) * 1e-3 / reps
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name if entries is None else next(
+                (n for n in entries if n in e.name), None)
+            if key is not None:
+                by_name.setdefault(key, []).append(e.time_range.elapsed_us())
+    check(by_name and (entries is None or len(by_name) == len(entries)),
+          f"the profiler saw no launch of {entries or 'any kernel'}")
+    total = 0.0
+    for name, d in by_name.items():
+        per_call = round(len(d) / reps)
+        check(entries is None or per_call == 1,
+              f"profiler saw {len(d)} records of {name} in {reps} calls")
+        total += per_call * sum(d) / len(d)
+    return total * 1e-3
 
 
 K1_ENTRIES = ("window_linearize_kernel", "window_riccati_kernel")
