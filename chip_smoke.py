@@ -22,14 +22,17 @@ must pass or the script exits non-zero without a result line:
               the time of each of window_backward's two launches (phase A,
               the knot-parallel linearisation; phase B, the Riccati sweep);
 4. cholesky - the batched-Cholesky kernel against its plain version within
-              2e-3 (1 + |ref|): on the Quu and [Qu | Qux] of every knot of
-              one backward sweep of the B=256 fleet (m=7, k=15), and on the
-              chol bench mode's batch (B=12800, m=7, k=8), beside one
-              library factor-and-solve of the same systems;
+              2e-3 (1 + |ref|): on the Quu and [Qu | Qux] of the last knot
+              (B=256) and of every knot (B=12800) of one backward sweep of
+              the fleet (m=7, k=15), and on the chol bench mode's batch
+              (B=12800, m=7, k=8), each timed beside one library
+              factor-and-solve of the same systems; every lane group width
+              the kernel is built for is held and timed on its own;
 5. rollout  - the fused rollout kernel at B=1024, N=50, 10 substeps: every
               knot replayed from the kernel's own previous state through
               the plain step within 2e-4 (1 + |ref|), the whole
               trajectory's difference printed (open-loop rounding grows);
+              every lane group width held and timed on its own;
 6. paths    - each path with every launch counter reset just before and
               read just after: the fused serving chain (python -m
               aircraft_tpu_torch.bench, a cold window and two chained
@@ -463,10 +466,12 @@ CHOL_TOL = 2e-3
 ROLL_TOL = 2e-4
 
 
-def hold_cholesky(a, rhs, label, timing_reps=0):
+def hold_cholesky(a, rhs, label, timing_reps=0, groups=()):
     """The batched-Cholesky kernel against its plain version on (a, rhs);
     returns the max abs error and, with timing_reps, the kernel's, the
-    plain version's and one library factor-and-solve's times."""
+    plain version's and one library factor-and-solve's times.  Each lane
+    group width in `groups` is launched alone (no count), held the same
+    way and, with timing_reps, timed on the device (out["groups"])."""
     import torch
 
     from aircraft_tpu_torch import bench
@@ -496,6 +501,14 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
               f"device {out['library_device_ms']:.5f} ms, call "
               f"{out['library_ms']:.4f} ms; bound {out['bound'][0]:.6f} ms "
               f"({out['bound'][1]})", flush=True)
+    out["groups"] = {}
+    for g in groups:
+        fn = lambda: cholesky.launch(a, rhs, g)
+        ok, e = close(fn(), xp, CHOL_TOL)
+        check(ok, f"{label} G={g}: kernel and plain version differ by {e}")
+        out["err"] = max(out["err"], e)
+        if timing_reps:
+            out["groups"][g] = device_ms(fn, timing_reps, K5_ENTRIES)
     return out
 
 
@@ -534,10 +547,12 @@ def sweep_systems(ocp, z0s, us, inp):
             torch.cat([r for _, r in captured]).contiguous())
 
 
-def hold_rollout(B, N, substeps, label, timing_reps=0):
+def hold_rollout(B, N, substeps, label, timing_reps=0, groups=()):
     """The fused rollout kernel against the plain step: every knot of the
     kernel's trajectory replayed from its own previous state, and the
-    whole plain rollout's difference printed."""
+    whole plain rollout's difference printed.  Each lane group width in
+    `groups` is launched alone (no count), replayed the same way and, with
+    timing_reps, timed on the device (out["groups"])."""
     import numpy as np
     import torch
 
@@ -561,12 +576,30 @@ def hold_rollout(B, N, substeps, label, timing_reps=0):
     us[..., 3:6] = 0.0
     op = krollout.make_rollout_operands(params, horizon=N, dt=bench.DT,
                                         substeps=substeps)
-    xs = krollout.fused_rollout(op, x0, us)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(xs).all()), f"{label}: non-finite states")
     step = integrators.make_step_fn(params, substeps=substeps, normalize="step")
-    nxt = step(xs[:, :-1].reshape(-1, 13), us.reshape(-1, 7), bench.DT)
-    ok, err = close(xs[:, 1:].reshape(-1, 13), nxt, ROLL_TOL)
+
+    def replay(xs, what):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(xs).all()), f"{what}: non-finite states")
+        check(bool((xs[:, 0] == x0).all()), f"{what}: first knot is not x0")
+        prev = xs[:, :-1].reshape(-1, 13)
+        nxt = step(prev, us.reshape(-1, 7), bench.DT)
+        got = xs[:, 1:].reshape(-1, 13)
+        ok, err = close(got, nxt, ROLL_TOL)
+        if not ok:
+            bad = torch.abs(got - nxt) > ROLL_TOL * (1 + torch.abs(nxt))
+            r, i = divmod(int(torch.argmax(
+                (torch.abs(got - nxt) / (1 + torch.abs(nxt))).flatten())), 13)
+            print(f"{what}: {int(bad.sum())} of {bad.numel()} state entries "
+                  f"beyond the tolerance, in {int(bad.any(-1).sum())} knots; "
+                  f"worst: scenario {r // N} knot {r % N} entry {i}: kernel "
+                  f"{float(got[r, i])!r} plain {float(nxt[r, i])!r}; state "
+                  f"before {prev[r].tolist()}; kernel after {got[r].tolist()}; "
+                  f"plain after {nxt[r].tolist()}", flush=True)
+        return ok, err
+
+    xs = krollout.fused_rollout(op, x0, us)
+    ok, err = replay(xs, label)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -587,6 +620,14 @@ def hold_rollout(B, N, substeps, label, timing_reps=0):
         print(f"{label}: kernel device {out['device_ms']:.4f} ms, wrapper "
               f"{out['ms']:.4f} ms; plain rollout {out['plain_ms']:.1f} ms",
               flush=True)
+    out["groups"] = {}
+    for g in groups:
+        fn = lambda: krollout.launch(op, x0, us, g)
+        ok, e = replay(fn(), f"{label} G={g}")
+        check(ok, f"{label} G={g}: a knot differs from the plain step by {e}")
+        out["err"] = max(out["err"], e)
+        if timing_reps:
+            out["groups"][g] = device_ms(fn, timing_reps, K34_ENTRIES)
     return out
 
 
@@ -662,7 +703,8 @@ def main() -> int:
         return 2
     try:
         from aircraft_tpu_torch import bench
-        from aircraft_tpu_torch.kernels import _build
+        from aircraft_tpu_torch.kernels import _build, cholesky
+        from aircraft_tpu_torch.kernels import rollout as krollout
         from aircraft_tpu_torch.kernels import window as win
     except ImportError as e:
         print(f"chip_smoke: the aircraft_tpu_torch package is missing ({e})",
@@ -709,22 +751,31 @@ def main() -> int:
     phase("batched cholesky")
     a, rhs = sweep_systems(ocp, z0s, us, inp)
     chol = hold_cholesky(a[:B], rhs[:B], f"sweep, last knot B={B} m=7 k=15",
-                         timing_reps=200)
+                         timing_reps=200, groups=cholesky.GROUPS)
     chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15",
-                             timing_reps=50)
+                             timing_reps=50, groups=cholesky.GROUPS)
     A_cm, rhs_cm = (torch.as_tensor(t, device="cuda")
                     for t in bench.chol_problem())
     chol_cm = hold_cholesky(A_cm, rhs_cm, "chol mode B=12800 m=7 k=8",
-                            timing_reps=50)
+                            timing_reps=50, groups=cholesky.GROUPS)
     work["batched_cholesky"] = cholesky_work(B, 7, 15)
-    print("batched_cholesky device ms: "
-          + json.dumps({"sweep_last_knot_B256_k15": chol["device_ms"],
-                        "sweep_all_knots_B12800_k15": chol_all["device_ms"],
-                        "chol_mode_B12800_k8": chol_cm["device_ms"]}),
+    print(f"batched_cholesky device ms (G={cholesky.GROUP} in the wrapper; "
+          "every width launched alone): " + json.dumps({
+              "sweep_last_knot_B256_k15": chol["device_ms"],
+              "sweep_all_knots_B12800_k15": chol_all["device_ms"],
+              "chol_mode_B12800_k8": chol_cm["device_ms"],
+              "by_group": {lbl: {f"G={g}": t for g, t in c["groups"].items()}
+                           for lbl, c in (("B256_k15", chol),
+                                          ("B12800_k15", chol_all),
+                                          ("B12800_k8", chol_cm))}}),
           flush=True)
 
     phase("fused rollout")
-    roll = hold_rollout(1024, N, 10, "B=1024 N=50 ss=10", timing_reps=10)
+    roll = hold_rollout(1024, N, 10, "B=1024 N=50 ss=10", timing_reps=10,
+                        groups=krollout.GROUPS)
+    print(f"fused_rollout device ms (G={krollout.GROUP} in the wrapper; every "
+          "width launched alone): " + json.dumps(
+              {f"G={g}": t for g, t in roll["groups"].items()}), flush=True)
     work["fused_rollout"] = rollout_work(1024, N, 10, roll["op"].mlp.numel())
 
     phase("path: fused serving chain")
