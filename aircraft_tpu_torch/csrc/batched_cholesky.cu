@@ -19,27 +19,33 @@
 // loads, the factor's square roots, one column's substitutions) is the
 // cost (chip_smoke.py computes the bound from its inputs).
 //
-// Design: a group of G lanes per system (G = 8 or 16, a template
-// parameter; the wrapper picks it) and THREADS / G systems per block.
-// The block first copies its systems' A matrices, and the rhs columns of
-// the current chunk, into shared memory with consecutive threads on
-// consecutive words (float4 where the block's span is 16-byte aligned),
-// so every global load is coalesced.  Each lane of a group then factors
-// its system's A redundantly from shared memory (broadcast reads) into
-// registers, in the reference's order (s = a[i][j] - sum_p L[i][p] L[j][p],
-// p ascending), keeping one IEEE reciprocal per pivot; lane c solves the
-// chunk's columns c, c + G, ... (forward, then back substitution, a
-// multiply by the pivot's reciprocal in place of each divide) and writes
-// each solution over its rhs column in shared memory; the block copies the
-// chunk of X out the way it came in.  m is a template parameter, so every
-// loop over the matrix unrolls and L stays in registers.  Where k columns
-// would not fit the block's shared memory the kernel walks them in chunks
-// of `kc` (the wrapper's launch geometry, kernels/cholesky.py).
+// Design: a group of G = 16 lanes per system and THREADS / G = 8 systems
+// per block (G = 8 was measured too and lost at the sweep's B = 256:
+// PERF.md).  The block first copies its systems' A matrices, and the rhs
+// columns of the current chunk, into shared memory with consecutive
+// threads on consecutive words (float4 where the block's span is 16-byte
+// aligned), so every global load is coalesced.  Each lane of a group then
+// factors its system's A redundantly from shared memory (broadcast reads)
+// into registers, in the reference's order (s = a[i][j] - sum_p L[i][p]
+// L[j][p], p ascending), keeping one IEEE reciprocal per pivot; lane c
+// solves the chunk's columns c, c + G, ... (forward, then back
+// substitution, a multiply by the pivot's reciprocal in place of each
+// divide) and writes each solution over its rhs column in shared memory;
+// the block copies the chunk of X out the way it came in.  m is a template
+// parameter, so every loop over the matrix unrolls and L stays in
+// registers.  Where k columns would not fit the block's shared memory the
+// kernel walks them in chunks of `kc`, the widest that fits SMEM_BUDGET
+// (the launcher computes it).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #define MAX_M 16
 #define THREADS 128
 #define SMEM_BUDGET 49152  // bytes of shared memory per block (no opt-in needed)
+
+constexpr int G = 16;            // lanes per system
+constexpr int S = THREADS / G;   // systems per block
 
 // NaN-propagating max, as jnp.maximum
 __device__ __forceinline__ float nanmax(float a, float b) { return (a > b || a != a) ? a : b; }
@@ -59,11 +65,10 @@ __device__ __forceinline__ void block_copy(float* __restrict__ dst, const float*
   }
 }
 
-template <int M, int G>
+template <int M>
 __global__ void __launch_bounds__(THREADS)
 batched_cholesky_kernel(const float* __restrict__ A, const float* __restrict__ rhs,
                         float* __restrict__ X, int B, int k, int kc) {
-  constexpr int S = THREADS / G;  // systems per block
   extern __shared__ float4 smem4[];
   float* sA = reinterpret_cast<float*>(smem4);  // (S, M, M)
   float* sR = sA + S * M * M;                    // (S, M, w): the chunk
@@ -143,34 +148,15 @@ batched_cholesky_kernel(const float* __restrict__ A, const float* __restrict__ r
   }
 }
 
-// shared memory of one block: S systems' A and a chunk of kc columns of
-// their rhs (kernels/cholesky.py::launch_geometry computes the same)
-static size_t smem_bytes(int S, int m, int kc) {
-  return sizeof(float) * (size_t)S * (m * m + m * kc);
-}
-
-template <int M, int G>
-static int launch(const float* A, const float* rhs, float* X, int B, int k, int kc,
+// S systems' A and the widest chunk of their rhs columns that fits
+// SMEM_BUDGET (at least 80 columns: m = 16 leaves 1280 of 1536 floats)
+template <int M>
+static int launch(const float* A, const float* rhs, float* X, int B, int k,
                   cudaStream_t stream) {
-  constexpr int S = THREADS / G;
-  const size_t smem = smem_bytes(S, M, kc);
-  if (smem > SMEM_BUDGET) return (int)cudaErrorInvalidValue;
-  batched_cholesky_kernel<M, G><<<(B + S - 1) / S, THREADS, smem, stream>>>(A, rhs, X, B, k, kc);
+  const int kc = std::min(k, (SMEM_BUDGET / (int)sizeof(float) / S - M * M) / M);
+  const size_t smem = sizeof(float) * (size_t)S * (M * M + M * kc);
+  batched_cholesky_kernel<M><<<(B + S - 1) / S, THREADS, smem, stream>>>(A, rhs, X, B, k, kc);
   return (int)cudaGetLastError();
-}
-
-template <int G>
-static int launch_m(const float* A, const float* rhs, float* X, int B, int m, int k, int kc,
-                    cudaStream_t s) {
-  switch (m) {
-#define CASE(n) \
-  case n:       \
-    return launch<n, G>(A, rhs, X, B, k, kc, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-#undef CASE
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* batched_cholesky_layout() { return ""; }
@@ -179,13 +165,18 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// G lanes per system (8 or 16), kc columns per chunk
 extern "C" int batched_cholesky_launch(const float* A, const float* rhs, float* X, int B, int m,
-                                       int k, int G, int kc, void* stream) {
-  if (m < 1 || m > MAX_M || k < 1 || kc < 1) return (int)cudaErrorInvalidValue;
+                                       int k, void* stream) {
+  if (m < 1 || m > MAX_M || k < 1) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (G == 8) return launch_m<8>(A, rhs, X, B, m, k, kc, s);
-  if (G == 16) return launch_m<16>(A, rhs, X, B, m, k, kc, s);
+  switch (m) {
+#define CASE(n) \
+  case n:       \
+    return launch<n>(A, rhs, X, B, k, s);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+#undef CASE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -17,8 +17,8 @@
 // N * substeps * 4 plant evaluations, one after the other, while the
 // scenarios all run at once.
 //
-// Design: a group of G lanes per scenario (G = 8 or 32, a template
-// parameter; the wrapper picks it), ROLL_THREADS / G scenarios per block.
+// Design: a group of G = 8 lanes per scenario, ROLL_THREADS / G = 16
+// scenarios per block (G = 16 and 32 were measured too and lost: PERF.md).
 // The plant's MLP is spread across the group (GroupMLP): each lane keeps
 // its share of the weights in registers, loaded once, computes its
 // first-layer units, takes the 16 first-layer outputs by shuffles inside
@@ -38,11 +38,13 @@
 #define ROLL_THREADS 128
 #define FULL_MASK 0xffffffffu
 
+constexpr int G = 8;                   // lanes per scenario
+constexpr int SPB = ROLL_THREADS / G;  // scenarios per block
+
 // the 5-16-32-6 MLP spread across a group of G lanes.  Lane l holds
 // first-layer units (l + G u) mod 16 for u < U1, second-layer units l + G v
-// for v < U2 (their columns of w1 and rows of w2).  At G = 32 this is
-// window_forward.cu's LaneMLP.
-template <int G>
+// for v < U2 (their columns of w1 and rows of w2).  At G = 32 this would
+// be window_forward.cu's LaneMLP.
 struct GroupMLP {
   static constexpr int U1 = G >= 16 ? 1 : 16 / G;
   static constexpr int U2 = 32 / G;
@@ -102,18 +104,16 @@ struct GroupMLP {
   }
 };
 
-template <int G>
 __global__ void __launch_bounds__(ROLL_THREADS)
 fused_rollout_kernel(const WinConst C, const float* __restrict__ x0,
                      const float* __restrict__ us, const float* __restrict__ mlp,
                      float* __restrict__ xs, int B) {
-  constexpr int SPB = ROLL_THREADS / G;  // scenarios per block
   const int b = blockIdx.x * SPB + threadIdx.x / G;
   const int l = threadIdx.x % G;
   const bool live = b < B;
   const int bs = live ? b : B - 1;  // past the end: a copy of the last
 
-  GroupMLP<G> aero;
+  GroupMLP aero;
   aero.load(mlp, l);
   const int N = (int)C.N[0];
   const int nsub = (int)C.substeps[0];
@@ -144,19 +144,8 @@ fused_rollout_kernel(const WinConst C, const float* __restrict__ x0,
 
 WINDOW_EXPORTS(fused_rollout)
 
-template <int G>
-static int launch(const WinConst& C, const float* x0, const float* us, const float* mlp,
-                  float* xs, int B, cudaStream_t stream) {
-  constexpr int SPB = ROLL_THREADS / G;
-  fused_rollout_kernel<G><<<(B + SPB - 1) / SPB, ROLL_THREADS, 0, stream>>>(C, x0, us, mlp,
-                                                                            xs, B);
-  return (int)cudaGetLastError();
-}
-
-// G lanes per scenario: 8 or 32 (G = 16 computes the same function, but
-// is not built: PERF.md has its trial)
 extern "C" int fused_rollout_launch(const float* consts, int nconst, const float* x0,
-                                    const float* us, const float* mlp, float* xs, int B, int G,
+                                    const float* us, const float* mlp, float* xs, int B,
                                     void* stream) {
   if ((size_t)nconst * sizeof(float) != sizeof(WinConst)) return (int)cudaErrorInvalidValue;
   WinConst C;
@@ -164,8 +153,7 @@ extern "C" int fused_rollout_launch(const float* consts, int nconst, const float
   if (C.is_mlp[0] == 0.f || C.N[0] < 1.f || C.substeps[0] < 1.f)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (G == 8) return launch<8>(C, x0, us, mlp, xs, B, s);
-  if (G == 32) return launch<32>(C, x0, us, mlp, xs, B, s);
-  return (int)cudaErrorInvalidValue;
+  fused_rollout_kernel<<<(B + SPB - 1) / SPB, ROLL_THREADS, 0, (cudaStream_t)stream>>>(
+      C, x0, us, mlp, xs, B);
+  return (int)cudaGetLastError();
 }

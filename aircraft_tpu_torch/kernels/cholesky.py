@@ -75,26 +75,6 @@ def _check(a: torch.Tensor, rhs: torch.Tensor) -> None:
             raise ValueError(f"{name}: on {t.device}, A on {a.device}")
 
 
-# Launch geometry (csrc/batched_cholesky.cu): GROUP lanes per system and
-# THREADS // GROUP systems per block; the block stages its systems' A and
-# a chunk of their rhs columns in at most SMEM_BUDGET bytes of shared
-# memory.  GROUP was chosen on the card from GROUPS (PERF.md).
-GROUP = 16
-GROUPS = (8, 16)
-THREADS = 128
-SMEM_BUDGET = 48 * 1024
-
-
-def launch_geometry(m: int, k: int, group: int = GROUP):
-    """(systems per block, columns per chunk, shared bytes per block) of
-    one launch at m, k: the widest chunk of the k columns that fits."""
-    if group not in GROUPS:
-        raise ValueError(f"group {group}: the kernel is built for {GROUPS}")
-    spb = THREADS // group
-    kc = min(k, (SMEM_BUDGET // 4 // spb - m * m) // m)
-    return spb, kc, 4 * spb * (m * m + m * kc)
-
-
 _launcher = None
 
 
@@ -104,28 +84,9 @@ def _launch_fn():
     if _launcher is None:
         lib = _build.library("batched_cholesky")
         fn = lib.batched_cholesky_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         _launcher = lib, fn
     return _launcher
-
-
-def launch(a: torch.Tensor, rhs: torch.Tensor, group: int = GROUP) -> torch.Tensor:
-    """X from one launch of the kernel at ``group`` lanes per system, on
-    checked CUDA tensors; no count (``batched_cholesky_solve`` counts)."""
-    lib, fn = _launch_fn()
-    if not a.is_contiguous():
-        a = a.contiguous()
-    if not rhs.is_contiguous():
-        rhs = rhs.contiguous()
-    B, m, k = rhs.shape
-    _, kc, _ = launch_geometry(m, k, group)
-    x = torch.empty_like(rhs)
-    err = fn(a.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, m, k, group, kc,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("batched_cholesky launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    return x
 
 
 def batched_cholesky_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -136,7 +97,18 @@ def batched_cholesky_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         return cholesky_solve_plain(a, rhs)
     if a.device.type != "cuda":
         raise RuntimeError(f"batched_cholesky_solve: no kernel for {a.device}")
-    x = launch(a, rhs)
+    lib, fn = _launch_fn()
+    if not a.is_contiguous():
+        a = a.contiguous()
+    if not rhs.is_contiguous():
+        rhs = rhs.contiguous()
+    B, m, k = rhs.shape
+    x = torch.empty_like(rhs)
+    err = fn(a.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, m, k,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("batched_cholesky launch failed: "
+                           f"{_build.error_string(lib, err)}")
     batched_cholesky_solve.launches += 1
     return x
 

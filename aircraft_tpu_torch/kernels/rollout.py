@@ -84,11 +84,6 @@ def _kernel_consts(lib, consts: dict) -> dict:
             for name, n in lib.layout}
 
 
-# GROUP lanes per scenario (csrc/fused_rollout.cu builds GROUPS), chosen
-# on the card (PERF.md)
-GROUP = 8
-GROUPS = (8, 32)
-
 _launcher = None
 
 
@@ -99,35 +94,10 @@ def _launch_fn():
         lib = _build.library("fused_rollout")
         fn = lib.fused_rollout_launch
         fn.argtypes = ([ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                        + [ctypes.c_void_p])
         _launcher = lib, fn
     return _launcher
-
-
-def launch(op: RolloutOperands, x0: torch.Tensor, us: torch.Tensor,
-           group: int = GROUP) -> torch.Tensor:
-    """xs from one launch of the kernel at ``group`` lanes per scenario, on
-    checked CUDA tensors; no count (``fused_rollout`` counts)."""
-    if group not in GROUPS:
-        raise ValueError(f"group {group}: the kernel is built for {GROUPS}")
-    lib, fn = _launch_fn()
-    if op.packed is None:
-        op.packed = _build.pack_consts(lib, _kernel_consts(lib, op.consts))
-    if not x0.is_contiguous():
-        x0 = x0.contiguous()
-    if not us.is_contiguous():
-        us = us.contiguous()
-    B = x0.shape[0]
-    xs = torch.empty((B, op.horizon + 1, XS), dtype=torch.float32,
-                     device=x0.device)
-    err = fn(op.packed, len(op.packed), x0.data_ptr(), us.data_ptr(),
-             op.mlp.data_ptr(), xs.data_ptr(), B, group,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_rollout launch failed: "
-                           f"{_build.error_string(lib, err)}")
-    return xs
 
 
 def fused_rollout(op: RolloutOperands, x0: torch.Tensor,
@@ -146,7 +116,20 @@ def fused_rollout(op: RolloutOperands, x0: torch.Tensor,
         return rollout_plain(op, x0, us)
     if x0.device.type != "cuda":
         raise RuntimeError(f"fused_rollout: no kernel for {x0.device}")
-    xs = launch(op, x0, us)
+    lib, fn = _launch_fn()
+    if op.packed is None:
+        op.packed = _build.pack_consts(lib, _kernel_consts(lib, op.consts))
+    if not x0.is_contiguous():
+        x0 = x0.contiguous()
+    if not us.is_contiguous():
+        us = us.contiguous()
+    xs = torch.empty((B, N + 1, XS), dtype=torch.float32, device=x0.device)
+    err = fn(op.packed, len(op.packed), x0.data_ptr(), us.data_ptr(),
+             op.mlp.data_ptr(), xs.data_ptr(), B,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_rollout launch failed: "
+                           f"{_build.error_string(lib, err)}")
     fused_rollout.launches += 1
     return xs
 

@@ -26,13 +26,11 @@ must pass or the script exits non-zero without a result line:
               (B=256) and of every knot (B=12800) of one backward sweep of
               the fleet (m=7, k=15), and on the chol bench mode's batch
               (B=12800, m=7, k=8), each timed beside one library
-              factor-and-solve of the same systems; every lane group width
-              the kernel is built for is held and timed on its own;
+              factor-and-solve of the same systems;
 5. rollout  - the fused rollout kernel at B=1024, N=50, 10 substeps: every
               knot replayed from the kernel's own previous state through
               the plain step within 2e-4 (1 + |ref|), the whole
               trajectory's difference printed (open-loop rounding grows);
-              every lane group width held and timed on its own;
 6. paths    - each path with every launch counter reset just before and
               read just after: the fused serving chain (python -m
               aircraft_tpu_torch.bench, a cold window and two chained
@@ -45,13 +43,13 @@ must pass or the script exits non-zero without a result line:
 7. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
-Every kernel has two times.  `wrapper_ms` is CUDA events around
-back-to-back wrapper calls, per call: where the wrapper's host work
-outlasts its kernel, it is host time.  `device_ms` (the report's `ms`) is
-the kernel's own: the summed durations of its entries in a torch.profiler
-trace of the same calls, per call (K1's two entries summed); `share` is
-bound_ms / device_ms.  The library call has both too (`library_ms`,
-`library_device_ms`: every device activity of one call).
+Every kernel has two times.  `ms` is its device time, the kernel's own:
+the summed durations of its entries in a torch.profiler trace of timed
+calls, per call (K1's two entries summed); `share` is bound_ms / ms.
+`wrapper_ms` is CUDA events around back-to-back wrapper calls, per call:
+where the wrapper's host work outlasts its kernel, it is host time.  The
+library call has both too: `library_ms` (every device activity of one
+call) and `library_wrapper_ms`.
 """
 
 from __future__ import annotations
@@ -238,15 +236,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps, entries=None):
-    """Device time: the durations of the device activities of `reps`
-    calls in a torch.profiler trace, per call.  With `entries`, the
-    kernels whose name holds one of them, each launched once per call;
-    without, every device activity of the call (a library call's kernels,
-    copies and fills).  The trace can drop records of a run of short
-    launches, so an entry counts as the mean duration of its records (at
-    least a tenth of the calls must show), and a library name as its mean
-    duration times its records per call, rounded."""
+PREROLL_CALLS = 3
+PREROLL_GAP_S = 0.01
+TRACE_TRIES = 3
+TIMED = "chip_smoke: timed calls"
+# traces taken, those whose pre-roll lost kernel records, and how many
+# (printed in the report phase)
+TRACES = {"traces": 0, "preroll_lost_in": 0, "preroll_records_lost": 0}
+
+
+def _trace(fn, reps):
+    """({name: [duration, us]}, lost) for `reps` calls of fn in one
+    torch.profiler trace: the device records of the calls, and how many
+    of the calls' kernel launches (host-side records) left no device
+    record.  A trace can lose the records of its first launches, so fn
+    runs PREROLL_CALLS times first, inside the trace, and the device idles
+    PREROLL_GAP_S before the timed calls; only records that start after
+    that count (TRACES tallies the pre-roll's losses)."""
     import torch
 
     fn()
@@ -254,28 +260,86 @@ def device_ms(fn, reps, entries=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
+        for _ in range(PREROLL_CALLS):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PREROLL_GAP_S)
+        with torch.profiler.record_function(TIMED):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events if e.name == TIMED)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.name if entries is None else next(
-                (n for n in entries if n in e.name), None)
-            if key is not None:
-                by_name.setdefault(key, []).append(e.time_range.elapsed_us())
-    check(by_name and (entries is None or len(by_name) == len(entries)),
-          f"the profiler saw no launch of {entries or 'any kernel'}")
-    total = 0.0
-    for name, d in by_name.items():
-        if entries is None:
-            per_call = round(len(d) / reps)
-        else:
-            per_call = 1
-            check(max(1, reps // 10) <= len(d) <= reps,
-                  f"profiler saw {len(d)} records of {name} in {reps} calls")
-        total += per_call * sum(d) / len(d)
-    return total * 1e-3
+    launches = [0, 0]    # pre-roll, timed
+    kernels = [0, 0]
+    for e in events:
+        timed = e.time_range.start >= t0
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            launches[timed] += "LaunchKernel" in e.name
+        elif e.name != TIMED:
+            kernels[timed] += not e.name.startswith(("Memcpy", "Memset"))
+            if timed:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    TRACES["traces"] += 1
+    TRACES["preroll_lost_in"] += launches[0] > kernels[0]
+    TRACES["preroll_records_lost"] += launches[0] - kernels[0]
+    return by_name, launches[1] - kernels[1]
+
+
+def device_ms(fn, reps, entries=None):
+    """Device time: the summed durations of the device records of `reps`
+    calls in a torch.profiler trace, per call.  With `entries`, the
+    kernels whose name holds one of them, each launched once per call;
+    without, every device activity of the call (a library call's kernels,
+    copies and fills).  Only a whole trace counts: every kernel launch of
+    the calls with its record, and of each name a whole number of records
+    per call (one per entry).  A trace that lost records is printed and
+    taken again, up to TRACE_TRIES times."""
+    for _ in range(TRACE_TRIES):
+        trace, lost = _trace(fn, reps)
+        if entries is not None:
+            trace = {n: [t for name, d in trace.items() if n in name
+                         for t in d] for n in entries}
+        seen = {n: len(d) for n, d in trace.items()}
+        whole = lost == 0 and bool(seen) and all(
+            c > 0 and c % reps == 0 and (entries is None or c == reps)
+            for c in seen.values())
+        if whole:
+            return sum(sum(d) for d in trace.values()) * 1e-3 / reps
+        print(f"device_ms: the trace of {reps} calls lost {lost} kernel "
+              f"records ({sorted(seen.values())} records per name); tracing "
+              "again", flush=True)
+    raise SmokeFailure(f"{TRACE_TRIES} traces of {reps} calls lost records")
+
+
+def graph_ms(fn, launches, replays=5):
+    """A cross-check of a device time that needs no trace: `launches` calls
+    of fn captured in one CUDA graph, the graph replayed back to back
+    between CUDA events, per call.  The host is out of it; the graph adds
+    its gap between dependent launches and the trace adds its overhead to
+    each record, so the two agree to a few percent, not exactly."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
 
 
 K1_ENTRIES = ("window_linearize_kernel", "window_riccati_kernel")
@@ -470,12 +534,10 @@ CHOL_TOL = 2e-3
 ROLL_TOL = 2e-4
 
 
-def hold_cholesky(a, rhs, label, timing_reps=0, groups=()):
+def hold_cholesky(a, rhs, label, timing_reps=0):
     """The batched-Cholesky kernel against its plain version on (a, rhs);
     returns the max abs error and, with timing_reps, the kernel's, the
-    plain version's and one library factor-and-solve's times.  Each lane
-    group width in `groups` is launched alone (no count), held the same
-    way and, with timing_reps, timed on the device (out["groups"])."""
+    plain version's and one library factor-and-solve's times."""
     import torch
 
     from aircraft_tpu_torch import bench
@@ -493,27 +555,32 @@ def hold_cholesky(a, rhs, label, timing_reps=0, groups=()):
     if timing_reps:
         kern = lambda: cholesky.batched_cholesky_solve(a, rhs)
         lib = lambda: bench.library_cholesky_solve(a, rhs)
-        out["ms"] = cuda_ms(kern, timing_reps)
-        out["device_ms"] = device_ms(kern, timing_reps, K5_ENTRIES)
+        out["wrapper_ms"] = cuda_ms(kern, timing_reps)
+        out["ms"] = device_ms(kern, timing_reps, K5_ENTRIES)
+        out["graph_ms"] = graph_ms(kern, timing_reps)
         out["plain_ms"] = cuda_ms(lambda: cholesky.cholesky_solve_plain(a, rhs),
                                   timing_reps)
-        out["library_ms"] = cuda_ms(lib, timing_reps)
-        out["library_device_ms"] = device_ms(lib, timing_reps)
+        out["library_wrapper_ms"] = cuda_ms(lib, timing_reps)
+        out["library_ms"] = device_ms(lib, timing_reps)
         out["bound"] = bound_ms(cholesky_work(*rhs.shape))
-        print(f"{label}: kernel device {out['device_ms']:.5f} ms, wrapper "
-              f"{out['ms']:.5f} ms; plain {out['plain_ms']:.4f} ms; library "
-              f"device {out['library_device_ms']:.5f} ms, call "
-              f"{out['library_ms']:.4f} ms; bound {out['bound'][0]:.6f} ms "
-              f"({out['bound'][1]})", flush=True)
-    out["groups"] = {}
-    for g in groups:
-        fn = lambda: cholesky.launch(a, rhs, g)
-        ok, e = close(fn(), xp, CHOL_TOL)
-        check(ok, f"{label} G={g}: kernel and plain version differ by {e}")
-        out["err"] = max(out["err"], e)
-        if timing_reps:
-            out["groups"][g] = device_ms(fn, timing_reps, K5_ENTRIES)
+        print(f"{label}: kernel device {out['ms']:.5f} ms, in a CUDA graph "
+              f"{out['graph_ms']:.5f} ms, wrapper {out['wrapper_ms']:.5f} ms; "
+              f"plain {out['plain_ms']:.4f} ms; library device "
+              f"{out['library_ms']:.5f} ms, call "
+              f"{out['library_wrapper_ms']:.4f} ms; bound "
+              f"{out['bound'][0]:.6f} ms ({out['bound'][1]})", flush=True)
     return out
+
+
+def spd_systems(B, m, k):
+    """B random SPD systems on the card, A = W Wᵀ/m + 2I, with rhs
+    (B, m, k)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    W = torch.randn((B, m, m), device="cuda", generator=gen)
+    a = W @ W.transpose(-1, -2) / m + 2.0 * torch.eye(m, device="cuda")
+    return a, torch.randn((B, m, k), device="cuda", generator=gen)
 
 
 def sweep_systems(ocp, z0s, us, inp):
@@ -551,12 +618,10 @@ def sweep_systems(ocp, z0s, us, inp):
             torch.cat([r for _, r in captured]).contiguous())
 
 
-def hold_rollout(B, N, substeps, label, timing_reps=0, groups=()):
+def hold_rollout(B, N, substeps, label, timing_reps=0):
     """The fused rollout kernel against the plain step: every knot of the
     kernel's trajectory replayed from its own previous state, and the
-    whole plain rollout's difference printed.  Each lane group width in
-    `groups` is launched alone (no count), replayed the same way and, with
-    timing_reps, timed on the device (out["groups"])."""
+    whole plain rollout's difference printed."""
     import numpy as np
     import torch
 
@@ -618,20 +683,12 @@ def hold_rollout(B, N, substeps, label, timing_reps=0, groups=()):
     out = {"err": err, "op": op}
     if timing_reps:
         kern = lambda: krollout.fused_rollout(op, x0, us)
-        out["ms"] = cuda_ms(kern, timing_reps)
-        out["device_ms"] = device_ms(kern, timing_reps, K34_ENTRIES)
+        out["wrapper_ms"] = cuda_ms(kern, timing_reps)
+        out["ms"] = device_ms(kern, timing_reps, K34_ENTRIES)
         out["plain_ms"] = start.elapsed_time(stop)
-        print(f"{label}: kernel device {out['device_ms']:.4f} ms, wrapper "
-              f"{out['ms']:.4f} ms; plain rollout {out['plain_ms']:.1f} ms",
-              flush=True)
-    out["groups"] = {}
-    for g in groups:
-        fn = lambda: krollout.launch(op, x0, us, g)
-        ok, e = replay(fn(), f"{label} G={g}")
-        check(ok, f"{label} G={g}: a knot differs from the plain step by {e}")
-        out["err"] = max(out["err"], e)
-        if timing_reps:
-            out["groups"][g] = device_ms(fn, timing_reps, K34_ENTRIES)
+        print(f"{label}: kernel device {out['ms']:.4f} ms, wrapper "
+              f"{out['wrapper_ms']:.4f} ms; plain rollout "
+              f"{out['plain_ms']:.1f} ms", flush=True)
     return out
 
 
@@ -689,6 +746,55 @@ def ilqr_breakdown(ocp, z0s, us, config):
     return times, wall, busy, len(kernels)
 
 
+def fleet_problem(B=256):
+    """The bench problem for a fleet of B gliders at cruise trim over the
+    horizon, and window_inputs' expansion point: (ocp, spec, config, z0s,
+    us, inp)."""
+    from aircraft_tpu_torch import bench
+
+    _, params, ocp, track, v_ref, spec = bench.build_problem("cuda")
+    config = bench.headline_config()
+    N = bench.N_HORIZON
+    z0s, trim = bench.fleet_states(params, track, B, v_ref)
+    w0 = ocp.control_unsquash(trim.control[:7])
+    us = w0.reshape(1, 1, 7).expand(B, N, 7).contiguous()
+    return ocp, spec, config, z0s, us, window_inputs(ocp, spec, z0s, us,
+                                                      config, N)
+
+
+def cholesky_phase(ocp, z0s, us, inp):
+    """The batched-Cholesky kernel held and timed at its three batches: the
+    last knot of one backward sweep of the fleet, every knot of it, and
+    the chol bench mode's systems."""
+    import torch
+
+    from aircraft_tpu_torch import bench
+
+    B, N = us.shape[:2]
+    a, rhs = sweep_systems(ocp, z0s, us, inp)
+    chol = hold_cholesky(a[:B], rhs[:B], f"sweep, last knot B={B} m=7 k=15",
+                         timing_reps=200)
+    chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15",
+                             timing_reps=50)
+    A_cm, rhs_cm = (torch.as_tensor(t, device="cuda")
+                    for t in bench.chol_problem())
+    chol_cm = hold_cholesky(A_cm, rhs_cm, "chol mode B=12800 m=7 k=8",
+                            timing_reps=50)
+    print("batched_cholesky device ms: " + json.dumps({
+        "sweep_last_knot_B256_k15": chol["ms"],
+        "sweep_all_knots_B12800_k15": chol_all["ms"],
+        "chol_mode_B12800_k8": chol_cm["ms"]}), flush=True)
+    return chol, chol_all, chol_cm
+
+
+def rollout_phase():
+    """The fused rollout kernel held and timed at the kernel mode's shape."""
+    from aircraft_tpu_torch import bench
+
+    N = bench.N_HORIZON
+    return hold_rollout(1024, N, 10, f"B=1024 N={N} ss=10", timing_reps=10)
+
+
 def reset_all_counts():
     from aircraft_tpu_torch.kernels import cholesky, rollout, window
     from aircraft_tpu_torch.solvers import riccati
@@ -707,8 +813,7 @@ def main() -> int:
         return 2
     try:
         from aircraft_tpu_torch import bench
-        from aircraft_tpu_torch.kernels import _build, cholesky
-        from aircraft_tpu_torch.kernels import rollout as krollout
+        from aircraft_tpu_torch.kernels import _build
         from aircraft_tpu_torch.kernels import window as win
     except ImportError as e:
         print(f"chip_smoke: the aircraft_tpu_torch package is missing ({e})",
@@ -733,15 +838,10 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     phase("window kernels at full width")
-    cfg, params, ocp, track, v_ref, spec = bench.build_problem("cuda")
-    config = bench.headline_config()
-    B, N = 256, bench.N_HORIZON
-    z0s, trim = bench.fleet_states(params, track, B, v_ref)
-    w0 = ocp.control_unsquash(trim.control[:7])
-    us = w0.reshape(1, 1, 7).expand(B, N, 7).contiguous()
+    ocp, spec, config, z0s, us, inp = fleet_problem()
+    B, N = us.shape[:2]
     op = win.make_window_operands(spec, N, alphas=win.line_search_alphas(
         config.line_search_steps), device="cuda")
-    inp = window_inputs(ocp, spec, z0s, us, config, N)
     occupancy(op, B)
     full = hold_kernels(op, inp, "B=256 N=50 nn", timing_reps=20)
     work = {"window_backward": backward_work(op, B),
@@ -753,33 +853,11 @@ def main() -> int:
         hold_kernels(op_s, inp_s, f"B=16 N=10 {model} reversed")
 
     phase("batched cholesky")
-    a, rhs = sweep_systems(ocp, z0s, us, inp)
-    chol = hold_cholesky(a[:B], rhs[:B], f"sweep, last knot B={B} m=7 k=15",
-                         timing_reps=200, groups=cholesky.GROUPS)
-    chol_all = hold_cholesky(a, rhs, f"sweep, all {N} knots B={N * B} m=7 k=15",
-                             timing_reps=50, groups=cholesky.GROUPS)
-    A_cm, rhs_cm = (torch.as_tensor(t, device="cuda")
-                    for t in bench.chol_problem())
-    chol_cm = hold_cholesky(A_cm, rhs_cm, "chol mode B=12800 m=7 k=8",
-                            timing_reps=50, groups=cholesky.GROUPS)
+    chol, chol_all, chol_cm = cholesky_phase(ocp, z0s, us, inp)
     work["batched_cholesky"] = cholesky_work(B, 7, 15)
-    print(f"batched_cholesky device ms (G={cholesky.GROUP} in the wrapper; "
-          "every width launched alone): " + json.dumps({
-              "sweep_last_knot_B256_k15": chol["device_ms"],
-              "sweep_all_knots_B12800_k15": chol_all["device_ms"],
-              "chol_mode_B12800_k8": chol_cm["device_ms"],
-              "by_group": {lbl: {f"G={g}": t for g, t in c["groups"].items()}
-                           for lbl, c in (("B256_k15", chol),
-                                          ("B12800_k15", chol_all),
-                                          ("B12800_k8", chol_cm))}}),
-          flush=True)
 
     phase("fused rollout")
-    roll = hold_rollout(1024, N, 10, "B=1024 N=50 ss=10", timing_reps=10,
-                        groups=krollout.GROUPS)
-    print(f"fused_rollout device ms (G={krollout.GROUP} in the wrapper; every "
-          "width launched alone): " + json.dumps(
-              {f"G={g}": t for g, t in roll["groups"].items()}), flush=True)
+    roll = rollout_phase()
     work["fused_rollout"] = rollout_work(1024, N, 10, roll["op"].mlp.numel())
 
     phase("path: fused serving chain")
@@ -851,35 +929,38 @@ def main() -> int:
           f"{cmode['max_diff']}")
 
     phase("report")
-    # (name, replaces, max abs err, wrapper ms, device ms, plain ms,
-    #  library ms, library device ms)
+    # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
+    #  library device ms, library wrapper ms)
     rows = (
         ("window_backward", "aircraft_tpu/kernels/window_kernel.py:482",
-         full["backward_err"], full["backward_ms"], full["backward_device_ms"],
+         full["backward_err"], full["backward_device_ms"], full["backward_ms"],
          full["backward_plain_ms"], None, None),
         ("window_forward", "aircraft_tpu/kernels/window_kernel.py:700",
-         full["forward_err"], full["forward_ms"], full["forward_device_ms"],
+         full["forward_err"], full["forward_device_ms"], full["forward_ms"],
          full["forward_plain_ms"], None, None),
         ("batched_cholesky", "aircraft_tpu/kernels/cholesky_kernel.py:68",
          max(chol["err"], chol_all["err"], chol_cm["err"]), chol["ms"],
-         chol["device_ms"], chol["plain_ms"], chol["library_ms"],
-         chol["library_device_ms"]),
+         chol["wrapper_ms"], chol["plain_ms"], chol["library_ms"],
+         chol["library_wrapper_ms"]),
         ("fused_rollout", "aircraft_tpu/kernels/rollout_kernel.py:256, "
          "aircraft_tpu/kernels/rollout_kernel.py:434",
-         roll["err"], roll["ms"], roll["device_ms"], roll["plain_ms"], None,
+         roll["err"], roll["ms"], roll["wrapper_ms"], roll["plain_ms"], None,
          None),
     )
     kernels = []
-    for name, replaces, err, wms, dms, plain_ms, lib_ms, lib_dms in rows:
+    for name, replaces, err, ms, wms, plain_ms, lib_ms, lib_wms in rows:
         bms, by = bound_ms(work[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aircraft_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": dms, "device_ms": dms,
-            "wrapper_ms": wms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "share": bms / dms, "library_ms": lib_ms,
-            "library_device_ms": lib_dms})
+            "max_abs_err": err, "ms": ms, "wrapper_ms": wms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "share": bms / ms, "library_ms": lib_ms,
+            "library_wrapper_ms": lib_wms})
+    print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
+          "lost by the pre-roll, the first launches of a trace; the timed "
+          "calls kept every record)", flush=True)
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -1,0 +1,47 @@
+#!/usr/bin/env python3
+"""Times of the batched-Cholesky and fused-rollout kernels on the card,
+without the rest of chip_smoke.py.
+
+    python3 kernel_times.py
+
+Needs one CUDA card and nvcc.  Runs chip_smoke.py's cholesky and rollout
+phases (each kernel held against its plain version at the smoke's shapes,
+then timed) and prints the card's name and power limit and one JSON line
+of times in ms: `ms` the device time (torch.profiler), `graph_ms` the
+Cholesky kernel in a CUDA graph, `wrapper_ms` CUDA events around wrapper
+calls, `library_ms` the library factor-and-solve's device time.  Run in
+two checkouts in one call, on one card, it compares two versions of the
+kernels.  Without a card it exits non-zero and prints no times.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import chip_smoke
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    ocp, _, _, z0s, us, inp = chip_smoke.fleet_problem()
+    chol, chol_all, chol_cm = chip_smoke.cholesky_phase(ocp, z0s, us, inp)
+    roll = chip_smoke.rollout_phase()
+    keys = ("ms", "graph_ms", "wrapper_ms", "library_ms")
+    times = {name: {k: c[k] for k in keys}
+             for name, c in (("batched_cholesky_B256_k15", chol),
+                             ("batched_cholesky_B12800_k15", chol_all),
+                             ("batched_cholesky_B12800_k8", chol_cm))}
+    times["fused_rollout_B1024_N50_ss10"] = {k: roll[k]
+                                             for k in ("ms", "wrapper_ms")}
+    print(chip_smoke.smi_line())
+    print(json.dumps(times))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

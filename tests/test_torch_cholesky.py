@@ -68,27 +68,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                         torch.ones(1, 3, 1, dtype=torch.float64))
 
 
-def test_launch_geometry_chunks_cover_every_column_within_shared_memory():
-    """The kernel's launch geometry: at m=16, k=4096 every lane group width
-    walks the columns in the widest chunks that fit the block's shared
-    memory budget (below sm_90's 232,448 bytes per block), and the kernel's
-    walk (c0 = 0, kc, 2kc, ...; min(kc, k - c0) columns each) covers every
-    column once; the sweep's m=7, k=15 is one chunk."""
-    m, k = 16, 4096
-    for group in cholesky.GROUPS:
-        spb, kc, smem = cholesky.launch_geometry(m, k, group)
-        assert spb * group == cholesky.THREADS
-        assert 1 <= kc < k
-        assert smem == 4 * spb * (m * m + m * kc)
-        assert smem <= cholesky.SMEM_BUDGET <= 232448
-        assert 4 * spb * (m * m + m * (kc + 1)) > cholesky.SMEM_BUDGET
-        cols = [c for c0 in range(0, k, kc) for c in range(c0, c0 + min(kc, k - c0))]
-        assert cols == list(range(k))
-        assert cholesky.launch_geometry(7, 15, group)[1] == 15
-    with pytest.raises(ValueError):
-        cholesky.launch_geometry(7, 15, 4)
-
-
 def test_kernel_route_whole_batch_fallback_matches_reference():
     """One indefinite matrix (1e3 (ones - 2I): eigenvalues 2e3 and -2e3)
     in a batch of SPD ones: the clamped-pivot kernel overflows on it, so

@@ -61,31 +61,23 @@ def test_cuda_window_kernels_at_edge_shapes(model, n_alpha):
     assert win.window_backward.launches == win.window_forward.launches == 1
 
 
-def _spd(B, m, k):
-    gen = torch.Generator(device="cuda").manual_seed(B)
-    W = torch.randn((B, m, m), device="cuda", generator=gen)
-    a = W @ W.transpose(-1, -2) / m + 2.0 * torch.eye(m, device="cuda")
-    return a, torch.randn((B, m, k), device="cuda", generator=gen)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,m,k", [(37, 7, 15), (301, 7, 8), (5, 16, 1),
                                    (37, 7, 40), (3, 16, 1), (21, 16, 100)])
 def test_cuda_cholesky_matches_plain_version(B, m, k):
-    """Random SPD systems (A = W Wᵀ/m + 2I), within 2e-3 (1 + |ref|), at
-    every lane group width the kernel is built for: B no multiple of the
-    systems per block, k below, above and no multiple of the group, and
-    (21, 16, 100) wider than one column chunk of shared memory."""
+    """Random SPD systems (A = W Wᵀ/m + 2I), within 2e-3 (1 + |ref|): B no
+    multiple of the systems per block, k below, above and no multiple of
+    the lane group, and (21, 16, 100) wider than one column chunk of shared
+    memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from aircraft_tpu_torch.kernels import cholesky
 
-    a, rhs = _spd(B, m, k)
+    a, rhs = chip_smoke.spd_systems(B, m, k)
     cholesky.reset_launch_counts()
-    chip_smoke.hold_cholesky(a, rhs, f"B={B} m={m} k={k}",
-                             groups=cholesky.GROUPS)
+    chip_smoke.hold_cholesky(a, rhs, f"B={B} m={m} k={k}")
     assert cholesky.batched_cholesky_solve.launches == 1
 
 
@@ -94,15 +86,15 @@ def test_cuda_cholesky_matches_plain_version(B, m, k):
 def test_cuda_cholesky_keeps_a_bad_system_to_itself(fault):
     """One system with a NaN entry, or negated (not positive definite),
     among 37: its X is non-finite, as the plain version's, and every other
-    system equals the plain version within 2e-3 (1 + |ref|), at every lane
-    group width.  The Riccati sweep's whole-batch fallback relies on it."""
+    system equals the plain version within 2e-3 (1 + |ref|).  The Riccati
+    sweep's whole-batch fallback relies on it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from aircraft_tpu_torch.kernels import cholesky
 
-    a, rhs = _spd(37, 7, 15)
+    a, rhs = chip_smoke.spd_systems(37, 7, 15)
     bad = 20
     if fault == "nan":
         a[bad, 3, 3] = float("nan")
@@ -111,21 +103,18 @@ def test_cuda_cholesky_keeps_a_bad_system_to_itself(fault):
     xp = cholesky.cholesky_solve_plain(a, rhs)
     assert not bool(torch.isfinite(xp[bad]).all())
     good = torch.arange(37, device="cuda") != bad
-    outs = [cholesky.batched_cholesky_solve(a, rhs)]
-    outs += [cholesky.launch(a, rhs, g) for g in cholesky.GROUPS]
-    for x in outs:
-        assert not bool(torch.isfinite(x[bad]).all())
-        ok, err = chip_smoke.close(x[good], xp[good], chip_smoke.CHOL_TOL)
-        assert ok, err
+    x = cholesky.batched_cholesky_solve(a, rhs)
+    assert not bool(torch.isfinite(x[bad]).all())
+    ok, err = chip_smoke.close(x[good], xp[good], chip_smoke.CHOL_TOL)
+    assert ok, err
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N,substeps", [(37, 5, 2), (129, 3, 10), (5, 1, 1)])
 def test_cuda_rollout_matches_plain_version(B, N, substeps):
     """Every knot of the kernel's trajectory replayed through the plain
-    step within 2e-4 (1 + |ref|), at every lane group width the kernel is
-    built for: B no multiple of the scenarios per block, and one knot of
-    one substep."""
+    step within 2e-4 (1 + |ref|): B no multiple of the scenarios per
+    block, and one knot of one substep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -133,8 +122,7 @@ def test_cuda_rollout_matches_plain_version(B, N, substeps):
     from aircraft_tpu_torch.kernels import rollout
 
     rollout.reset_launch_counts()
-    chip_smoke.hold_rollout(B, N, substeps, f"B={B} N={N} ss={substeps}",
-                            groups=rollout.GROUPS)
+    chip_smoke.hold_rollout(B, N, substeps, f"B={B} N={N} ss={substeps}")
     assert rollout.fused_rollout.launches == 1
 
 
