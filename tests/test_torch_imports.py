@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
         "import importlib\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, kernel_times\n"
         "bad = sorted(m for m in sys.modules if m == 'aircraft_tpu' or"
         " m.startswith('aircraft_tpu.'))\n"
         "assert not bad, bad\n"
@@ -59,7 +59,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "kernel_times.py"])
 def test_no_forbidden_imports(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & set(FORBIDDEN), sorted(roots & set(FORBIDDEN))
