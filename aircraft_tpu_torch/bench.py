@@ -1,4 +1,5 @@
-"""The port's bench: the serving-chain headline and two kernel modes.
+"""The port's bench: the serving-chain headline, the single-aircraft
+serving modes and two kernel modes.
 
 ``--mode headline`` (the default): batched N=50 MHTT window solves of a
 fleet of gliders spread along the course track, chained window to window.
@@ -32,6 +33,18 @@ reference mode's JSON keys; the keys it names ``xla_*`` hold the plain
 PyTorch rollout (kernel mode) or ``torch.linalg.cholesky_ex`` +
 ``torch.cholesky_solve`` (chol mode).  Times are host wall clock around a
 synchronised call, the median of ``--reps`` (5 and 7 by default).
+
+``--mode latency`` (``BENCH_MODE=latency``): one aircraft's N=50 window
+solve at the headline budget, ``--reps`` times (30) from the same state,
+p50 / p90 against the 0.2 s of flight a window commits.  ``--mode serve``
+(``BENCH_MODE=serve``): one aircraft served ``--windows`` windows (50),
+each committed window pushed to the async telemetry recorder; pipelined
+(window w+1 dispatched before window w's blob is read) unless
+``--no-pipeline``.  Both solve the headline problem from the fleet's
+first glider at s = 0.1 with the trim warm start, on the window kernels
+(``--solver fused``, the reference's ``BENCH_FUSED=1``) or
+``ilqr.solve_batch`` (``--solver ilqr``), and print the reference mode's
+keys plus ``device``, ``matmul_precision`` and the launch counts.
 """
 
 from __future__ import annotations
@@ -45,7 +58,11 @@ import torch
 
 from aircraft_tpu_torch.config import SolverConfig, glider_config
 from aircraft_tpu_torch.control.course import COURSE_OCP_KNOBS, course_track
-from aircraft_tpu_torch.control.mhtt import build_mhtt_ocp
+from aircraft_tpu_torch.control.mhtt import (
+    build_mhtt_ocp,
+    finish_pull,
+    start_pull,
+)
 from aircraft_tpu_torch.device import matmul_precision, resolve_device
 from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
 from aircraft_tpu_torch.dynamics.coefficients import load_mlp
@@ -63,6 +80,7 @@ N_HORIZON = 50
 DT = 0.01
 OVERLAP = 30                  # knots a window shares with the next
 RESET_VIOL = 5.0              # physical-unit-scaled rows
+DEADLINE_S = (N_HORIZON - OVERLAP) * DT   # the flight a window commits
 
 
 def headline_config(al_iters=3, inner_iters=12, ls=6) -> SolverConfig:
@@ -337,9 +355,228 @@ def bench_chol(device="cuda", *, batch=256 * 50, reps=7) -> dict:
     }
 
 
+def serving_problem(device="cuda", *, horizon=N_HORIZON, al_iters=3,
+                    inner_iters=12, ls=6, solver="fused", seed=0):
+    """One aircraft on the headline problem: a healthy on-track state
+    (the fleet's first glider at s = 0.1) and the trim warm start.
+    Returns (dev, ocp, config, z0 (14,), us0 (N, 7), solve), ``solve``
+    taking batch-leading (z0s, us, al) through the window kernels
+    (``fused``) or ``ilqr.solve_batch`` (``ilqr``)."""
+    if solver not in ("fused", "ilqr"):
+        raise ValueError(f"solver={solver!r}")
+    dev = resolve_device(device)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed)
+    config = headline_config(al_iters, inner_iters, ls)
+    zs, trim = fleet_states(params, track, 1, v_ref, s_span=(0.1, 0.1),
+                            seed=seed)
+    u_trim = ocp.control_unsquash(trim.control[:7])
+    us0 = u_trim[None].expand(horizon, 7).contiguous()
+    if solver == "fused":
+        solve = make_fused_solver(ocp, spec, horizon, config)
+    else:
+        def solve(z0s, us, al=None):
+            return ilqr.solve_batch(ocp, z0s, us, config, al_inits=al)
+    return dev, ocp, config, zs[0], us0, solve
+
+
+def bench_latency(device="cuda", *, horizon=N_HORIZON, al_iters=3,
+                  inner_iters=12, ls=6, reps=30, solver="fused",
+                  seed=0) -> dict:
+    """p50 / p90 replan latency of one aircraft's window solve (batch 1)
+    from the same state and warm start, against the 0.2 s of flight a
+    window commits (the reference's ``BENCH_MODE=latency``)."""
+    dev, ocp, config, z0, us0, solve = serving_problem(
+        device, horizon=horizon, al_iters=al_iters, inner_iters=inner_iters,
+        ls=ls, solver=solver, seed=seed)
+    t0 = time.perf_counter()
+    sol = solve(z0[None], us0[None])
+    _sync(dev)
+    compile_wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sol = solve(z0[None], us0[None])
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(walls, 50))
+    return {
+        "metric": "replan_latency_p50_ms_b1_N50",
+        "value": round(p50 * 1e3, 3),
+        "unit": "ms",
+        "vs_baseline": round(DEADLINE_S / p50, 2),
+        "p90_ms": round(float(np.percentile(walls, 90)) * 1e3, 3),
+        "reps": reps,
+        "fused_kernels": solver == "fused" and dev.type == "cuda",
+        "al_iters": config.max_al_iters,
+        "inner_iters": config.max_inner_iters,
+        "compile_wall_s": round(compile_wall, 1),
+        "cost": round(float(sol.cost[0]), 1),
+        "violation": round(float(sol.violation[0]), 6),
+        "device": _device_name(dev),
+        "matmul_precision": matmul_precision(),
+        "solver": solver,
+        "horizon": horizon,
+        "kernel_launches": kernel_launches(),
+    }
+
+
+def bench_serve(device="cuda", *, windows=50, pipeline=True, horizon=N_HORIZON,
+                al_iters=3, inner_iters=12, ls=6, solver="fused",
+                seed=0) -> dict:
+    """One aircraft served window after window against the deadline of
+    the 0.2 s of flight each window commits, every committed window
+    pushed to the async telemetry recorder (the reference's
+    ``BENCH_MODE=serve``).  The carry (state, shifted controls, duals
+    gated at RESET_VIOL) stays on the device; a window above RESET_VIOL
+    hands the next one the trim warm start and cold duals.  Each window
+    returns one packed blob ``[xs[1:c+1] | us[:c] | cost, violation,
+    reset, s_next]``.
+
+    Pipelined (the default) dispatches window w+1 before reading window
+    w's blob, and reports the commit cadence; ``pipeline=False`` reports
+    the synchronous loop's latency with its solve / commit-copy /
+    telemetry split.  The log goes to ``serve_telemetry.bin`` in the
+    build directory."""
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+    from aircraft_tpu_torch.native import telemetry as tel
+
+    dev, ocp, config, x, us_reset, solve = serving_problem(
+        device, horizon=horizon, al_iters=al_iters, inner_iters=inner_iters,
+        ls=ls, solver=solver, seed=seed)
+    N = horizon
+    commit = N - OVERLAP if N > OVERLAP else max(1, N // 2)
+    al_reset = ocp_mod.init_al_state(ocp, x[None], us_reset[None, 0], N,
+                                     mu0=config.penalty_init)
+
+    def step(x, us, al):
+        sol = solve(x[None], us[None], al)
+        us_next = torch.cat([sol.us[0, commit:],
+                             sol.us[0, -1:].expand(commit, -1)])
+        al_next = ocp_mod.shift_al_state(
+            sol.al, commit, mu0=config.penalty_init,
+            decay=ocp_mod.gated_decay(sol.violation, RESET_VIOL))
+        bad = sol.violation > RESET_VIOL
+        us_next = torch.where(bad, us_reset, us_next).contiguous()
+        al_next = al_next.where(bad, al_reset)
+        blob = torch.cat([
+            sol.xs[0, 1:commit + 1, :14].reshape(-1),
+            sol.us[0, :commit].reshape(-1),
+            sol.cost, sol.violation, bad.to(torch.float32),
+            sol.xs[0, commit, 13:14]])
+        return sol.xs[0, commit], us_next, al_next, blob
+
+    def unpack(host):
+        xs14 = host[: commit * 14].reshape(commit, 14)
+        us_c = host[commit * 14: commit * 21].reshape(commit, 7)
+        cost, viol, was_reset, progress = host[-4:]
+        return xs14, us_c, cost, viol, was_reset, progress
+
+    us, al = us_reset, al_reset
+    t0 = time.perf_counter()
+    blob = step(x, us, al)[3]
+    _sync(dev)
+    compile_wall = time.perf_counter() - t0
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    solve_walls, copy_walls, tel_walls, cadence, viol_hist = [], [], [], [], []
+    progress_hist, n_resets = [], 0
+
+    def record(rec, w, host):
+        nonlocal n_resets
+        xs14, us_c, cost, viol, was_reset, progress = unpack(host)
+        viol_hist.append(float(viol))
+        progress_hist.append(float(progress))
+        n_resets += int(was_reset > 0)
+        rec.push(tel.flight_records(w, xs14[:, :13], us_c, xs14[:, 13],
+                                    cost, viol))
+
+    with tel.TelemetryRecorder(BUILD_DIR / "serve_telemetry.bin",
+                               tel.FLIGHT_REC_FLOATS,
+                               capacity=1 << 16) as rec:
+        if pipeline:
+            x_n, us_n, al_n, blob_n = step(x, us, al)
+            pending = start_pull(blob_n)
+            t_prev = time.perf_counter()
+            for w in range(windows):
+                x, us, al, pulled = x_n, us_n, al_n, pending
+                # dispatch w+1 from the carry on the device, then read w
+                # (no speculative solve after the last window)
+                if w + 1 < windows:
+                    x_n, us_n, al_n, blob_n = step(x, us, al)
+                    pending = start_pull(blob_n)
+                record(rec, w, finish_pull(pulled))
+                t_now = time.perf_counter()
+                cadence.append(t_now - t_prev)
+                t_prev = t_now
+        else:
+            for w in range(windows):
+                t0 = time.perf_counter()
+                x, us, al, blob = step(x, us, al)
+                _sync(dev)
+                t1 = time.perf_counter()
+                solve_walls.append(t1 - t0)
+                host = blob.cpu().numpy()      # the one commit transfer
+                t2 = time.perf_counter()
+                copy_walls.append(t2 - t1)
+                record(rec, w, host)
+                t3 = time.perf_counter()
+                tel_walls.append(t3 - t2)
+                cadence.append(t3 - t0)
+        rec.flush()
+        written, dropped = rec.stats()
+        backend = rec.backend
+
+    totals = np.asarray(cadence)
+    p50 = float(np.percentile(totals, 50))
+    breakdown = {}
+    if not pipeline:
+        pct = lambda v: float(np.percentile(np.asarray(v), 50))
+        breakdown = {
+            "solve_p50_ms": round(pct(solve_walls) * 1e3, 2),
+            "commit_copy_p50_ms": round(pct(copy_walls) * 1e3, 2),
+            "telemetry_push_p50_us": round(pct(tel_walls) * 1e6, 1),
+        }
+    progress = progress_hist[-1]
+    return {
+        "metric": ("serve_cadence_miss_rate_N50" if pipeline
+                   else "serve_deadline_miss_rate_N50"),
+        "value": round(int(np.sum(totals > DEADLINE_S)) / windows, 4),
+        "unit": "fraction",
+        "vs_baseline": round(DEADLINE_S / p50, 2),
+        "windows": windows,
+        "pipelined": pipeline,
+        "deadline_ms": DEADLINE_S * 1e3,
+        "p50_ms": round(p50 * 1e3, 2),
+        "p99_ms": round(float(np.percentile(totals, 99)) * 1e3, 2),
+        "max_ms": round(float(totals.max()) * 1e3, 2),
+        **breakdown,
+        "telemetry_backend": backend,
+        "telemetry_records": written,
+        "telemetry_dropped": dropped,
+        "fused_kernels": solver == "fused" and dev.type == "cuda",
+        "compile_wall_s": round(compile_wall, 1),
+        "compile_cache_entries_at_start": 0,
+        "initial_progress": round(progress_hist[0], 4),
+        "final_progress": round(progress, 4),
+        "progress_per_window": round(
+            (progress - progress_hist[0]) / max(windows - 1, 1), 6),
+        "resets": n_resets,
+        "reset_viol": RESET_VIOL,
+        "violation_units": "physical-unit-scaled",
+        "mean_violation": round(float(np.mean(viol_hist)), 6),
+        "p90_violation": round(float(np.percentile(viol_hist, 90)), 6),
+        "device": _device_name(dev),
+        "matmul_precision": matmul_precision(),
+        "solver": solver,
+        "horizon": horizon,
+        "kernel_launches": kernel_launches(),
+    }
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--mode", choices=("headline", "kernel", "chol"),
+    p.add_argument("--mode", choices=("headline", "kernel", "chol",
+                                      "latency", "serve"),
                    default="headline")
     p.add_argument("--solver", choices=("fused", "ilqr"), default="fused")
     p.add_argument("--cuda-chol", action="store_true",
@@ -354,7 +591,11 @@ def main(argv=None) -> None:
     p.add_argument("--line-search", type=int, default=6)
     p.add_argument("--warmup", type=int, default=6)
     p.add_argument("--reps", type=int, default=None,
-                   help="timed windows (3) or timed calls (kernel 5, chol 7)")
+                   help="timed windows (3) or timed calls (kernel 5, chol 7, "
+                   "latency 30)")
+    p.add_argument("--windows", type=int, default=50, help="serve mode")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="serve mode: the synchronous loop")
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
     if a.mode == "kernel":
@@ -362,6 +603,16 @@ def main(argv=None) -> None:
                            substeps=a.substeps, reps=a.reps or 5)
     elif a.mode == "chol":
         out = bench_chol(a.device, batch=a.batch or 256 * 50, reps=a.reps or 7)
+    elif a.mode == "latency":
+        out = bench_latency(a.device, horizon=a.horizon, al_iters=a.al_iters,
+                            inner_iters=a.inner_iters, ls=a.line_search,
+                            reps=30 if a.reps is None else a.reps,
+                            solver=a.solver, seed=a.seed)
+    elif a.mode == "serve":
+        out = bench_serve(a.device, windows=a.windows,
+                          pipeline=not a.no_pipeline, horizon=a.horizon,
+                          al_iters=a.al_iters, inner_iters=a.inner_iters,
+                          ls=a.line_search, solver=a.solver, seed=a.seed)
     else:
         out = run_headline(a.device, batch=a.batch or 256, horizon=a.horizon,
                            al_iters=a.al_iters, inner_iters=a.inner_iters,

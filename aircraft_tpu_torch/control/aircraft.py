@@ -75,3 +75,30 @@ def envelope_ineq(params: AircraftParams, state_env: StateEnvelope,
         "ub": np.asarray(ub_np, np.float32),
     }
     return ineq
+
+
+def envelope_registry(n_controls: int = 7, *,
+                      include_control_box: bool = True):
+    """``ConstraintRegistry`` of ``envelope_ineq``'s row layout, mapping a
+    violation row back to its meaning.  ``include_control_box`` must
+    mirror the ``envelope_ineq`` that built the OCP: without the 14 box
+    rows (the tanh squash) a registry that still listed them would
+    mislabel every envelope row."""
+    from aircraft_tpu_torch.observability import ConstraintRegistry
+
+    names = ["aileron", "elevator", "rudder", "thrust_x", "thrust_y",
+             "thrust_z", "flaps"][:n_controls]
+    reg = ConstraintRegistry()
+    if include_control_box:
+        for n in names:
+            reg.register(f"{n}_upper", 1)
+        for n in names:
+            reg.register(f"{n}_lower", 1)
+    reg.register("airspeed_floor", 1)    # lo² − v²  [m²/s²]
+    reg.register("airspeed_ceiling", 1)  # v² − hi²  [m²/s²]
+    reg.register("beta_upper", 1)        # [rad]
+    reg.register("beta_lower", 1)
+    reg.register("alpha_upper", 1)
+    reg.register("alpha_lower", 1)
+    reg.register("altitude_floor", 1)    # z < 0 (NED)
+    return reg

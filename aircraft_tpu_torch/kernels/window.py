@@ -213,6 +213,12 @@ class WindowOperands:
         return self.table.device
 
 
+def kernel_coeff_supported(params) -> bool:
+    """Whether the kernels compute this plant's coefficient model: the MLP
+    surrogate or the default closed-form aero."""
+    return isinstance(params.coeff, (MLPCoeffParams, DefaultCoeffParams))
+
+
 def plant_consts(params):
     """The plant fields of the kernels' constants block (geometry, the
     parallel-axis inertia and its inverse, the coefficient model) and the
@@ -221,7 +227,7 @@ def plant_consts(params):
     models other than the MLP and the default, and on plant switches the
     kernels do not compute."""
     cp = params.coeff
-    if not isinstance(cp, (MLPCoeffParams, DefaultCoeffParams)):
+    if not kernel_coeff_supported(params):
         raise NotImplementedError(
             f"CUDA kernels: coefficient model {type(cp).__name__}")
     if (params.stall_scaling or params.thrust_enabled or params.com_in_control

@@ -106,6 +106,17 @@ class ALState:
         return ALState(*(pick(getattr(self, f), getattr(other, f))
                          for f in _AL_FIELDS))
 
+    def index(self, idx: torch.Tensor) -> "ALState":
+        """The scenarios ``idx`` (a (k,) integer tensor, on any device)."""
+        return ALState(*(getattr(self, f).index_select(
+            0, idx.to(self.mu.device)) for f in _AL_FIELDS))
+
+    @staticmethod
+    def cat(states) -> "ALState":
+        """Batches of multipliers joined along the scenario axis."""
+        return ALState(*(torch.cat([getattr(s, f) for s in states])
+                         for f in _AL_FIELDS))
+
 
 _AL_FIELDS = ("lam_ineq", "lam_eq", "lam_t_ineq", "lam_t_eq", "mu", "mu_row")
 

@@ -31,6 +31,11 @@ must pass or the script exits non-zero without a result line:
               knot replayed from the kernel's own previous state through
               the plain step within 2e-4 (1 + |ref|), the whole
               trajectory's difference printed (open-loop rounding grows);
+   After the rollout phase, both window kernels are held the same way at B=1
+   and B=6 on the headline problem (N=50, MLP) and at B=6 on the course
+   problem (N=30, 5 substeps, default aero, the course track and knobs,
+   the AL control box), and timed in a CUDA graph of 20 calls (`ms_b1`,
+   `ms_b6`, `ms_course_b6` on the kernels line);
 6. paths    - each path with every launch counter reset just before and
               read just after: the fused serving chain (python -m
               aircraft_tpu_torch.bench, a cold window and two chained
@@ -39,7 +44,15 @@ must pass or the script exits non-zero without a result line:
               (--solver ilqr --cuda-chol: a cold and a chained window, 50
               Cholesky launches per backward pass, the numeric fallback on
               at most a tenth of them, no window kernel); the kernel bench
-              mode (two timed calls each) and the chol bench mode;
+              mode (two timed calls each) and the chol bench mode; the
+              serving loop: the latency mode (10 reps), the serve mode
+              (pipelined, 20 windows, native telemetry, nothing dropped;
+              then 5 synchronous windows for the solve / copy / push split),
+              5 windows of MHTT.run on the headline plant and budget
+              pipelined and then synchronous (the same commits, bit for
+              bit) and 8 windows of the course flight with 6 candidates,
+              each window kernel launched once per inner iteration of
+              every window solve;
 7. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
@@ -236,7 +249,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-PREROLL_CALLS = 3
+PREROLL_CALLS = 10
 PREROLL_GAP_S = 0.01
 TRACE_TRIES = 3
 TIMED = "chip_smoke: timed calls"
@@ -795,6 +808,234 @@ def rollout_phase():
     return hold_rollout(1024, N, 10, f"B=1024 N={N} ss=10", timing_reps=10)
 
 
+def serving_holds(op, config):
+    """Both window kernels held against their plain versions at the
+    serving shapes and timed in a CUDA graph: B=1 and B=6 on the headline
+    problem (one glider at s = 0.1 with the trim warm start, and six warm
+    starts around it), B=6 on the course problem.  Returns {label: hold}
+    with each hold's device times and bounds."""
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control.course import build_course_mhtt
+    from aircraft_tpu_torch.kernels import window as win
+    from aircraft_tpu_torch.solvers.trim import multistart_trim
+
+    _, ocp, _, z0, us0, _ = bench.serving_problem("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    us6 = us0[None].repeat(6, 1, 1)
+    us6[1:] += 0.05 * torch.randn(us6[1:].shape, device="cuda", generator=gen)
+    # the course: six gliders in a trimmed 30 m/s glide at the course's
+    # start (±1 m), trim controls (±0.02 deg on the surfaces); further from
+    # trim the 1.5 s open-loop rollout departs and every sweep fails
+    course, _, _ = build_course_mhtt(glider_config(), device="cuda")
+    Nc = course.N
+    trim = multistart_trim(course.params, n_starts=32, target_airspeed=30.0,
+                           generator=torch.Generator().manual_seed(0))
+    zc = torch.cat([trim.state, trim.state.new_zeros(1)]).to(torch.float32)
+    zc[:3] = torch.as_tensor(course.config.waypoints.initial_state[:3],
+                             dtype=torch.float32)
+    zc = zc[None].repeat(6, 1)
+    zc[1:, :3] += torch.randn((5, 3), device="cuda", generator=gen)
+    usc = trim.control[:7].to(torch.float32)[None, None].repeat(6, Nc, 1)
+    usc[1:, :, :3] += 0.02 * torch.randn((5, Nc, 3), device="cuda",
+                                         generator=gen)
+    cases = (
+        ("B=1 N=50 nn", op, ocp, z0[None], us0[None].contiguous(), config),
+        ("B=6 N=50 nn", op, ocp, z0[None].repeat(6, 1), us6.contiguous(),
+         config),
+        ("course B=6 N=30 ss=5 default", course._fused_solve.operands,
+         course.ocp, zc, usc.contiguous(), course.solver_config),
+    )
+    out = {}
+    for label, op_i, ocp_i, z, us, cfg_i in cases:
+        inp = window_inputs(ocp_i, None, z, us, cfg_i, us.shape[1])
+        hold = hold_kernels(op_i, inp, label)
+        B = us.shape[0]
+        bw_args = (inp["xs"], inp["ws"], inp["lam"], inp["mu"], inp["reg"],
+                   inp["mu_row"], inp["vx"], inp["vxx"])
+        K, kff, *_ = win.backward_plain(op_i, *bw_args)
+        fw_args = (inp["xs"], inp["ws"], K, kff, inp["lam"], inp["mu"],
+                   inp["mu_row"])
+        # timed in a CUDA graph of 20 calls: traces of these short
+        # launches lost records of the timed calls themselves
+        hold["backward_ms"] = graph_ms(
+            lambda: win.window_backward(op_i, *bw_args), 20)
+        hold["forward_ms"] = graph_ms(
+            lambda: win.window_forward(op_i, *fw_args), 20)
+        hold["backward_bound"] = bound_ms(backward_work(op_i, B))
+        hold["forward_bound"] = bound_ms(forward_work(op_i, B))
+        print(f"{label}: in a CUDA graph, window_backward "
+              f"{hold['backward_ms']:.4f} ms (bound "
+              f"{hold['backward_bound'][0]:.5f} ms), window_forward "
+              f"{hold['forward_ms']:.4f} ms (bound "
+              f"{hold['forward_bound'][0]:.5f} ms) per call", flush=True)
+        out[label] = hold
+    return out
+
+
+class CountWindowSolves:
+    """Counts MHTT's window solves (one-candidate and multi-candidate
+    serve steps) while active, so the launches a path must make are
+    known exactly: each window kernel once per inner iteration of every
+    solve, a multi-candidate batch being one solve."""
+
+    def __enter__(self):
+        from aircraft_tpu_torch.control.mhtt import MHTT
+
+        self.n = 0
+        self.saved = {}
+        for name in ("_serve_step", "_serve_step_multi"):
+            orig = getattr(MHTT, name)
+            self.saved[name] = orig
+
+            def counted(mhtt, *a, _orig=orig, **k):
+                self.n += 1
+                return _orig(mhtt, *a, **k)
+
+            setattr(MHTT, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from aircraft_tpu_torch.control.mhtt import MHTT
+
+        for name, orig in self.saved.items():
+            setattr(MHTT, name, orig)
+
+
+def check_window_launches(label, solves, per_solve):
+    """Every window kernel launched once per inner iteration of each of
+    `solves` window solves; returns the counts."""
+    from aircraft_tpu_torch import bench
+
+    counts = bench.kernel_launches()
+    want = solves * per_solve
+    print(f"{label}: {solves} window solves x {per_solve} inner iterations; "
+          f"window_backward {counts['window_backward']}, window_forward "
+          f"{counts['window_forward']} launches (expected {want} each)",
+          flush=True)
+    for name in ("window_backward", "window_forward"):
+        check(counts[name] == want,
+              f"{label}: {counts[name]} {name} launches, expected {want}")
+    return {name: counts[name] for name in ("window_backward",
+                                            "window_forward")}
+
+
+def serving_loop_paths():
+    """The serving loop's four drives, each with the launch counters reset
+    just before it and read just after; returns the launches per path and
+    the drives' records."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control.course import (
+        COURSE_OCP_KNOBS,
+        solve_full_course,
+    )
+    from aircraft_tpu_torch.control.mhtt import MHTT
+
+    per_window = 3 * 12
+    launches, records = {}, {}
+
+    reset_all_counts()
+    lat = bench.bench_latency("cuda", reps=10)
+    print(json.dumps(lat), flush=True)
+    check(lat["fused_kernels"], "latency mode did not run the kernels")
+    check(math.isfinite(lat["cost"]) and math.isfinite(lat["violation"]),
+          "latency mode: a non-finite solve")
+    launches["latency"] = check_window_launches(
+        "latency mode", 1 + lat["reps"], per_window)
+    records["latency"] = lat
+
+    reset_all_counts()
+    srv = bench.bench_serve("cuda", windows=20)
+    print(json.dumps(srv), flush=True)
+    check(srv["telemetry_backend"] == "native",
+          f"serve mode telemetry backend {srv['telemetry_backend']}")
+    check(srv["telemetry_dropped"] == 0 and srv["telemetry_records"] == 400,
+          f"serve mode telemetry: {srv['telemetry_records']} records, "
+          f"{srv['telemetry_dropped']} dropped")
+    check(srv["pipelined"] and srv["fused_kernels"],
+          "serve mode: not pipelined on the kernels")
+    check(math.isfinite(srv["mean_violation"]), "serve mode: non-finite")
+    # the set-up call, then one solve per window
+    launches["serve"] = check_window_launches("serve mode (pipelined)", 21,
+                                              per_window)
+    records["serve"] = srv
+
+    reset_all_counts()
+    sync = bench.bench_serve("cuda", windows=5, pipeline=False)
+    print(json.dumps(sync), flush=True)
+    check(sync["telemetry_dropped"] == 0 and sync["telemetry_records"] == 100
+          and not sync["pipelined"], f"serve mode, synchronous: {sync}")
+    launches["serve_sync"] = check_window_launches(
+        "serve mode (synchronous)", 6, per_window)
+    records["serve_sync"] = sync
+
+    cfg, params, _, track, v_ref, _ = bench.build_problem("cuda")
+    knobs = dict(COURSE_OCP_KNOBS)
+    knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
+                                   "unit_scales": True}
+    mhtt = MHTT(params, cfg, track, num_nodes=bench.N_HORIZON, dt=bench.DT,
+                overlap=bench.OVERLAP, v_ref=v_ref,
+                solver_config=bench.headline_config(), **knobs)
+    check(mhtt.fused, "MHTT on the card did not take the window kernels")
+    z0, trim = bench.fleet_states(params, track, 1, v_ref, s_span=(0.1, 0.1))
+    us0 = trim.control[:7][None].expand(bench.N_HORIZON, 7).contiguous()
+    runs = {}
+    for pipeline in (True, False):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with CountWindowSolves() as solves:
+            out = mhtt.run(z0[0, :13], s0=float(z0[0, 13]), max_windows=5,
+                           progress_target=2.0, us_init=us0,
+                           pipeline=pipeline, diagnose_on_abort=False)
+        wall = time.perf_counter() - t0
+        key = "mhtt_run_pipelined" if pipeline else "mhtt_run_sync"
+        launches[key] = check_window_launches(
+            f"MHTT.run {'pipelined' if pipeline else 'synchronous'}",
+            solves.n, per_window)
+        rec = {"windows": out["windows"], "retries": out["retries"],
+               "abort_reason": out["abort_reason"], "solves": solves.n,
+               "progress": out["progress"], "wall_s": wall,
+               "window_walls_s": out["window_walls_s"],
+               "finite": bool(np.isfinite(out["states"]).all())}
+        print(f"{key}: " + json.dumps(rec), flush=True)
+        check(out["windows"] == 5 and out["abort_reason"] is None
+              and rec["finite"], f"{key}: {rec}")
+        runs[pipeline] = out
+        records[key] = rec
+    check(np.array_equal(runs[True]["states"], runs[False]["states"])
+          and np.array_equal(runs[True]["controls"], runs[False]["controls"])
+          and runs[True]["progress"] == runs[False]["progress"],
+          "MHTT.run: pipelined and synchronous commits differ")
+    print("MHTT.run: pipelined and synchronous commits bit-equal over "
+          f"{runs[True]['controls'].shape[0]} knots", flush=True)
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with CountWindowSolves() as solves:
+        crs = solve_full_course(glider_config(), max_windows=8,
+                                device="cuda")
+    wall = time.perf_counter() - t0
+    rec = {"windows": crs["windows"], "retries": crs["retries"],
+           "abort_reason": crs["abort_reason"], "solves": solves.n,
+           "progress": crs["progress"], "misses": crs["misses"],
+           "wall_s": wall, "window_walls_s": crs["window_walls_s"],
+           "finite": bool(np.isfinite(crs["states"]).all())}
+    print("course, 8 windows: " + json.dumps(rec), flush=True)
+    check(crs["windows"] == 8 and crs["abort_reason"] is None
+          and rec["finite"], f"course: {rec}")
+    launches["course"] = check_window_launches(
+        "course (6 candidates per window as one batch)", solves.n, 4 * 20)
+    records["course"] = rec
+    torch.cuda.synchronize()
+    return launches, records
+
+
 def reset_all_counts():
     from aircraft_tpu_torch.kernels import cholesky, rollout, window
     from aircraft_tpu_torch.solvers import riccati
@@ -859,6 +1100,9 @@ def main() -> int:
     phase("fused rollout")
     roll = rollout_phase()
     work["fused_rollout"] = rollout_work(1024, N, 10, roll["op"].mlp.numel())
+
+    phase("window kernels at serving shapes")
+    serving = serving_holds(op, config)
 
     phase("path: fused serving chain")
     reset_all_counts()
@@ -928,6 +1172,9 @@ def main() -> int:
           "bench modes: a non-finite rollout or a Cholesky difference "
           f"{cmode['max_diff']}")
 
+    phase("path: serving loop")
+    serve_launches, _ = serving_loop_paths()
+
     phase("report")
     # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
     #  library device ms, library wrapper ms)
@@ -958,6 +1205,18 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "share": bms / ms, "library_ms": lib_ms,
             "library_wrapper_ms": lib_wms})
+    # the window kernels at the serving shapes and their launches on the
+    # serving loop's paths
+    shapes = (("b1", "B=1 N=50 nn"), ("b6", "B=6 N=50 nn"),
+              ("course_b6", "course B=6 N=30 ss=5 default"))
+    for row, half in ((kernels[0], "backward"), (kernels[1], "forward")):
+        for key, label in shapes:
+            hold = serving[label]
+            row[f"ms_{key}"] = hold[f"{half}_ms"]
+            row[f"bound_ms_{key}"], row[f"bound_by_{key}"] = hold[f"{half}_bound"]
+            row["max_abs_err"] = max(row["max_abs_err"], hold[f"{half}_err"])
+        row["launches_by_path"] = {"fused_chain": row["launches"], **{
+            path: counts[row["name"]] for path, counts in serve_launches.items()}}
     print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
           "lost by the pre-roll, the first launches of a trace; the timed "
           "calls kept every record)", flush=True)
@@ -965,7 +1224,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

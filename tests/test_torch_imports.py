@@ -76,9 +76,17 @@ def test_kernel_sources_ship_with_the_package():
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch import bench, device
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control.course import solve_full_course
+    from aircraft_tpu_torch.control.initialisation import DubinsInitialiser
+    from aircraft_tpu_torch.control.mhtt import MHTT
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
     from aircraft_tpu_torch.solvers import ocp, trim
 
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft, device="cpu")
+    track = DubinsInitialiser(cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     box = ([-1.0] * 7, [1.0] * 7)
     for call in (lambda: device.resolve_device(),
@@ -86,6 +94,10 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: bench.build_problem(),
                  lambda: bench.bench_kernel(),
                  lambda: bench.bench_chol(),
+                 lambda: bench.bench_latency(),
+                 lambda: bench.bench_serve(),
+                 lambda: MHTT(params, cfg, track),
+                 lambda: solve_full_course(cfg),
                  lambda: ocp.make_squash_maps(*box),
                  lambda: ocp.squash_controls(ocp.OCPFunctions(
                      step=None, stage_cost=None, terminal_cost=None), *box),
@@ -101,3 +113,43 @@ def test_full_precision_matmuls():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_native_runtime_builds_into_the_build_directory(tmp_path, monkeypatch):
+    """The port's g++ build of its telemetry runtime writes its library
+    under the build directory it is given (by default the checkout's
+    ``build/aircraft_tpu_torch/``) and nothing under ``aircraft_tpu/``."""
+    from aircraft_tpu_torch import native
+    from aircraft_tpu_torch.kernels import _build
+    from aircraft_tpu_torch.native import telemetry
+
+    assert native.lib_path("telemetry").parent == _build.BUILD_DIR
+    assert _build.BUILD_DIR == ROOT / "build" / "aircraft_tpu_torch"
+
+    def tree():
+        # other test processes may meanwhile compile the JAX package's
+        # bytecode or build its own native libraries: those are not ours
+        return {str(p): p.stat().st_mtime_ns
+                for p in (ROOT / "aircraft_tpu").rglob("*")
+                if "__pycache__" not in p.parts
+                and p.name not in ("libtelemetry.so", "libdubins.so")}
+
+    commands = []
+    run = subprocess.run
+
+    def spy(cmd, *a, **kw):
+        commands.append(cmd)
+        return run(cmd, *a, **kw)
+
+    before = tree()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIBS", {})
+    monkeypatch.setattr(native, "_FAILED", set())
+    monkeypatch.setattr(native.subprocess, "run", spy)
+    assert telemetry.native_available()
+    assert len(commands) == 1
+    out = Path(commands[0][commands[0].index("-o") + 1])
+    assert out.parent == tmp_path / "build"
+    built = list((tmp_path / "build").iterdir())
+    assert [p.name for p in built] == [native.lib_path("telemetry").name]
+    assert tree() == before

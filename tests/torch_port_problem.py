@@ -99,3 +99,51 @@ def fleet_inputs(B, N, seed=0, reversed_lanes=2):
         z[-reversed_lanes:, 3] *= -1.0
     ws = (0.05 * rng.standard_normal((B, N, 7))).astype(np.float32)
     return z, ws
+
+
+# the reference controller tests' small two-waypoint course
+# (tests/test_control.py::short_course_config), as a dict both packages read
+SHORT_COURSE = {
+    "waypoints": {
+        "waypoints": [[120.0, 10.0, -195.0], [240.0, -10.0, -190.0]],
+        "initial_state": [0, 0, -200, 50, 0, 0, 0, 0, 0, 1, 0, 0, 0],
+        "default_velocity": 45,
+        "waypoint_indices": [0, 1, 2],
+        "waypoint_tolerance": 10.0,
+    },
+    "aircraft": dict(
+        mass=4.0, span=2.0, length=1.2, chord=0.124605,
+        reference_area=0.238, aero_centre_offset=[0.133, 0, 0.003],
+        Ixx=0.155, Iyy=0.114, Izz=0.262, Ixz=0.01,
+        glide_ratio=3.0, r_min=1.0,
+    ),
+    "state": {"alpha": [-15, 15], "beta": [-15, 15], "airspeed": [30, 100]},
+    "control": {
+        "aileron_limit": [-10, 10],
+        "elevator_limit": [-10, 10],
+        "rudder_limit": [-10, 10],
+        "throttle_limit": [[0, 0, 0], [0, 0, 0]],
+        "centre_of_mass_limit": [[-0.5, -0.1, -0.1], [0.5, 0.1, 0.1]],
+    },
+}
+
+
+def short_course_pair():
+    """(jax dict, port dict) of the short course: config, params, track.
+    The port's params and track points are the reference's, through
+    numpy."""
+    from aircraft_tpu.config import TrajectoryConfig as JaxTrajectoryConfig
+    from aircraft_tpu.control.initialisation import DubinsInitialiser as JaxTrack
+
+    from aircraft_tpu_torch.config import TrajectoryConfig
+    from aircraft_tpu_torch.control.initialisation import DubinsInitialiser
+
+    jcfg = JaxTrajectoryConfig.from_dict(SHORT_COURSE)
+    jp = JaxParams.from_config(jcfg.aircraft)
+    jtrack = JaxTrack(jcfg)
+    cfg = TrajectoryConfig.from_dict(SHORT_COURSE)
+    track = DubinsInitialiser(cfg)
+    track.track_points = torch.as_tensor(np.array(jtrack.track_points))
+    track.total_length = float(jtrack.total_length)
+    return (dict(config=jcfg, params=jp, track=jtrack),
+            dict(config=cfg, params=port_params(jp), track=track))
