@@ -150,11 +150,8 @@ def build_mhtt_ocp(params: AircraftParams, config: TrajectoryConfig,
         rate_reward = 0.5 * torch.tanh(s_dot / 0.5)
         rest = -W_PROGRESS * s - W_PROGRESS_RATE * rate_reward
         if tail_damp is not None:
-            kt = torch.as_tensor(k, device=s.device)
-            rest = rest * torch.where(kt >= tail_damp[0],
-                                      torch.as_tensor(float(tail_damp[1]),
-                                                      device=s.device),
-                                      torch.as_tensor(1.0, device=s.device))
+            rest = rest * torch.where(ocp_mod.knot_tensor(k, s) >= tail_damp[0],
+                                      float(tail_damp[1]), 1.0)
         return rest
 
     def stage_cost(z, u, k):

@@ -33,6 +33,7 @@ def cholesky_solve_plain(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     ``_cholesky_solve_rows``, vectorised over the batch and the k columns
     (each column's arithmetic is the same as solving it alone)."""
     m = a.shape[-1]
+    floor = torch.full((), 1e-12, dtype=a.dtype, device=a.device)
     L = [[None] * m for _ in range(m)]
     for i in range(m):
         for j in range(i + 1):
@@ -41,7 +42,7 @@ def cholesky_solve_plain(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
                 s = s - L[i][p] * L[j][p]
             if i == j:
                 # torch.maximum propagates NaN, as jnp.maximum does
-                L[i][j] = torch.sqrt(torch.maximum(s, s.new_tensor(1e-12)))
+                L[i][j] = torch.sqrt(torch.maximum(s, floor))
             else:
                 L[i][j] = s / L[j][j]
     y = [None] * m

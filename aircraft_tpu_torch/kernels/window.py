@@ -203,6 +203,7 @@ class WindowOperands:
     table: torch.Tensor
     restfac: torch.Tensor
     alphas: tuple
+    alpha_vec: torch.Tensor     # the alphas on the device, (A,)
     is_mlp: bool
     nr: int
     ng: int
@@ -290,7 +291,9 @@ def make_window_operands(spec: dict, N: int, *, gain_clip: float = 1e4,
         table=torch.as_tensor(table, device=dev).contiguous(),
         restfac=torch.tensor(ws.rest_factors, dtype=torch.float32,
                              device=dev),
-        alphas=tuple(alphas), is_mlp=bool(plant["is_mlp"]),
+        alphas=tuple(alphas),
+        alpha_vec=torch.tensor(alphas, dtype=torch.float32, device=dev),
+        is_mlp=bool(plant["is_mlp"]),
         nr=n_residual_rows(ws), ng=n_ineq_rows(ws))
 
 
@@ -630,7 +633,7 @@ def forward_plain(op: WindowOperands, xs, ws, K, kff, lam, mu, mu_row):
     (B, A), then the best α per scenario selects the stored trajectory."""
     B, N = ws.shape[0], ws.shape[1]
     A = len(op.alphas)
-    alpha = torch.tensor(op.alphas, dtype=xs.dtype, device=xs.device)
+    alpha = op.alpha_vec
     x = xs[:, None, 0].expand(B, A, XD)
     cost = xs.new_zeros((B, A))
     nfro = xs.new_zeros((B, A))

@@ -25,6 +25,7 @@ effect on the result, raises too.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -211,12 +212,13 @@ def forward_pass(ocp: OCPFunctions, al: ALState, xs_ref, us_ref, K, kff,
                                 device=K.device)[:, None]
     x = xs_ref[:, None, 0].expand(Bz, A, n)
     nfro = torch.zeros((Bz, A), dtype=torch.int64, device=xs_ref.device)
+    ks = torch.arange(N, device=xs_ref.device)
     xs_c, us_c = [x], []
     for k in range(N):
         u = (us_ref[:, None, k] + alphas[None, :, None] * kff[:, None, k]
              + (K[:, None, k] @ (x - xs_ref[:, None, k])[..., None])[..., 0])
         x_next = ocp.step(x.reshape(-1, n), u.reshape(-1, m),
-                          torch.tensor(k, device=x.device)).reshape(Bz, A, n)
+                          ks[k]).reshape(Bz, A, n)
         finite = (torch.isfinite(x_next).all(-1)
                   & (torch.amax(torch.abs(x_next), dim=-1) < 1e6))
         x = torch.where(finite[..., None], x_next, x)
@@ -241,13 +243,23 @@ def line_search_alphas(steps: int) -> tuple:
         [np.logspace(0.0, -(steps - 2), steps - 1, base=2.0), [0.0]]))
 
 
+@functools.lru_cache(maxsize=None)
+def _alpha_vector(steps: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``line_search_alphas(steps)`` on the device, copied there once per
+    process rather than once per solve (each copy waits for the
+    stream)."""
+    return torch.tensor(line_search_alphas(steps), dtype=dtype, device=device)
+
+
 def initial_rollout(ocp: OCPFunctions, x0, us):
     """Freeze-guarded open-loop rollout of the warm start: (xs, frozen)."""
     N = us.shape[1]
     xs, x = [x0], x0
     nfro = torch.zeros(x0.shape[0], dtype=torch.int64, device=x0.device)
+    ks = torch.arange(N, device=x0.device)
     for k in range(N):
-        x_next = ocp.step(x, us[:, k], torch.tensor(k, device=x0.device))
+        x_next = ocp.step(x, us[:, k], ks[k])
         ok = (torch.isfinite(x_next).all(-1)
               & (torch.amax(torch.abs(x_next), dim=-1) < 1e6))
         x = torch.where(ok[:, None], x_next, x)
@@ -276,8 +288,7 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
             "ported (the full AL Hessian is not yet)")
     Bz, N, _ = us_init.shape
     dev, dtype = x0s.device, x0s.dtype
-    alphas = torch.tensor(line_search_alphas(config.line_search_steps),
-                          dtype=dtype, device=dev)
+    alphas = _alpha_vector(config.line_search_steps, dtype, dev)
     if xs_init is None:
         xs, nfro = initial_rollout(ocp, x0s, us_init)
     else:

@@ -13,14 +13,17 @@ from typing import Callable
 import torch
 
 from aircraft_tpu_torch.dynamics import aircraft, base
+from aircraft_tpu_torch.ops.elementwise import scalar_like
 
 NORMALIZE_MODES = ("none", "step")
 
 
 def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
     """Classic RK4 with zero-order-hold control; ``dt`` a scalar or a
-    tensor with x's batch axes."""
-    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)[..., None]
+    tensor with x's batch axes.  The step's arithmetic runs in x's dtype:
+    a Python dt is rounded to it first, so dt / 6 rounds as it would on a
+    tensor dt."""
+    dt = scalar_like(x, dt)[..., None]
     half = 0.5 * dt
     k1 = f(x, u)
     k2 = f(x + half * k1, u)

@@ -121,15 +121,19 @@ class ALState:
 _AL_FIELDS = ("lam_ineq", "lam_eq", "lam_t_ineq", "lam_t_eq", "mu", "mu_row")
 
 
-def _kt(k, x):
-    return torch.as_tensor(k, device=x.device)
+def knot_tensor(k, x):
+    """The knot index k as an integer tensor on x's device (a Python int
+    filled in there, not copied)."""
+    if isinstance(k, torch.Tensor):
+        return k.to(x.device)
+    return torch.full((), k, dtype=torch.int64, device=x.device)
 
 
 def init_al_state(ocp: OCPFunctions, x0: torch.Tensor, u0: torch.Tensor,
                   N: int, mu0: float = 10.0) -> ALState:
     """Zero multipliers, penalty ``mu0`` and unit row factors for a batch
     of initial states x0 (B, n) and controls u0 (B, m)."""
-    k0 = _kt(0, x0)
+    k0 = knot_tensor(0, x0)
     n_ineq = ocp.ineq(x0, u0, k0).shape[-1]
     n_eq = ocp.eq(x0, u0, k0).shape[-1]
     n_ti = ocp.terminal_ineq(x0).shape[-1]
@@ -186,7 +190,7 @@ def al_stage_cost(ocp: OCPFunctions, al: ALState, x, u, k: int):
     """Stage cost + PHR penalty at knot ``k`` for x (B, n), u (B, m):
     active when g + λ/μᵢ > 0, with μᵢ = mu · mu_row[i]."""
     return _stage_al(ocp, al.lam_ineq[:, k], al.lam_eq[:, k], al.mu,
-                     al.mu_row, x, u, _kt(k, x))
+                     al.mu_row, x, u, knot_tensor(k, x))
 
 
 def al_terminal_cost(ocp: OCPFunctions, al: ALState, x):
