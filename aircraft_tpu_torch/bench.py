@@ -160,7 +160,7 @@ def kernel_launches() -> dict:
     counts = {fn.__name__: fn.launches for mod in (window_mod, chol_mod,
                                                    rollout_mod)
               for fn in mod.KERNELS}
-    counts["chol_fallbacks"] = riccati.chol_fallbacks
+    counts["chol_fallbacks"] = riccati.read_fallbacks()
     return counts
 
 

@@ -281,7 +281,9 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
     linearisation point instead of rolling ``us_init`` out; its row 0 is
     pinned to x0s, and its incumbent cost reads N frozen knots so the
     first forward pass (a true rollout) is always taken.  ``cuda_chol``
-    sends the sweep's Quu solves to the batched-Cholesky kernel."""
+    sends the sweep's Quu solves to the batched-Cholesky kernel; its
+    numeric fallbacks are read into ``riccati.chol_fallbacks`` once, at
+    the end of the solve."""
     if config.hessian != "gauss_newton":
         raise NotImplementedError(
             f"hessian={config.hessian!r}: only the Gauss-Newton expansion is "
@@ -341,6 +343,8 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
             row_scale=config.penalty_row_scale,
             row_max=config.penalty_row_max,
             row_target=config.penalty_row_target)
+    if cuda_chol:
+        riccati_mod.read_fallbacks()     # the solve's one host read
     cost = ocp_mod.true_cost(ocp, xs, us)
     viol = ocp_mod.max_violation(ocp, xs, us)
     converged = (viol < config.constraint_tol) & torch.isfinite(cost)

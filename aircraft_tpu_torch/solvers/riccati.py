@@ -11,8 +11,12 @@ semantics (``aircraft_tpu/solvers/riccati.py``):
   (``kernels/cholesky.py``) on M_sym = ½(M+Mᵀ) + reg·I, and when any entry
   of the batch's result is non-finite, the whole batch takes the
   reference route instead and its flags (the reference's own numeric
-  fallback, counted in ``chol_fallbacks``).  The test costs one host sync
-  per knot.
+  fallback).  The reference decides that on the device (``lax.cond``);
+  so does the port, with no host read: both routes are computed and a
+  0-dim device flag selects one (``torch.where``).  The fallbacks are
+  counted on the device and folded into ``chol_fallbacks`` by
+  ``read_fallbacks``, one host read, which ``ilqr.solve_impl`` makes once
+  per solve.
 
 The associative (parallel-in-time) sweep is not ported yet.
 """
@@ -26,11 +30,23 @@ from aircraft_tpu_torch.kernels.cholesky import batched_cholesky_solve
 V_LIM = 1e14    # value-function clamp: far above AL curvature, far below f32 overflow
 
 chol_fallbacks = 0   # kernel-route calls whose batch took the reference route
+_pending = []        # 0-dim device flags of kernel-route calls not yet read
 
 
 def reset_counts() -> None:
     global chol_fallbacks
     chol_fallbacks = 0
+    _pending.clear()
+
+
+def read_fallbacks() -> int:
+    """Fold the device-side fallback counts into ``chol_fallbacks`` (one
+    host read, none when there is nothing pending); returns the total."""
+    global chol_fallbacks
+    if _pending:
+        chol_fallbacks += int(torch.stack(_pending).sum())   # the host read
+        _pending.clear()
+    return chol_fallbacks
 
 
 def _sym(M):
@@ -64,15 +80,16 @@ def chol_solve_reference(M, rhs, reg):
 
 def chol_solve_kernel(M, rhs, reg):
     """The kernel route: ``batched_cholesky_solve`` on ½(M+Mᵀ) + reg·I; the
-    whole batch falls back to ``chol_solve_reference`` when any entry of X
-    is non-finite.  Returns (X, bad)."""
-    global chol_fallbacks
+    whole batch takes ``chol_solve_reference``'s result when any entry of
+    X is non-finite.  Both are computed and selected on the device, and
+    the fallback is counted there (``read_fallbacks``).  Returns (X,
+    bad)."""
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     X = batched_cholesky_solve(_sym(M) + reg[:, None, None] * eye, rhs)
-    if bool(torch.isfinite(X).all()):
-        return X, torch.zeros(M.shape[0], dtype=torch.bool, device=M.device)
-    chol_fallbacks += 1
-    return chol_solve_reference(M, rhs, reg)
+    fell_back = ~torch.isfinite(X).all()
+    _pending.append(fell_back)
+    X_ref, bad_ref = chol_solve_reference(M, rhs, reg)
+    return torch.where(fell_back, X_ref, X), fell_back & bad_ref
 
 
 def _clamp(t):

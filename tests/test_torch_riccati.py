@@ -72,6 +72,60 @@ def test_backward_sequential_matches_reference(problem, route):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=ATOL,
                                    err_msg=name)
     np.testing.assert_array_equal(out[5].numpy(), np.asarray(ref[5]))
-    assert riccati.chol_fallbacks == 0
+    assert riccati.read_fallbacks() == 0
     assert cholesky.batched_cholesky_solve.launches == 0   # CPU: plain version
+
+
+
+POISON = 1e5
+
+
+def _fake_kernel_jax(M, rhs):
+    """A stand-in for the Cholesky kernel: twice the solution, so a knot
+    that kept it is told from one that took the reference route, and
+    non-finite on a system whose first pivot exceeds POISON."""
+    X = 2.0 * jnp.linalg.solve(M, rhs)
+    return jnp.where(M[..., :1, :1] > POISON, jnp.nan, X)
+
+
+def _fake_kernel_torch(a, rhs):
+    X = 2.0 * torch.linalg.solve(a, rhs)
+    return torch.where(a[..., :1, :1] > POISON, float("nan"), X)
+
+
+def test_kernel_route_falls_back_at_one_knot_for_the_whole_batch(
+        monkeypatch):
+    """One system of one knot gives a non-finite X: at that knot the whole
+    batch takes the reference route, every other knot keeps the kernel's
+    X, as the reference's ``lax.cond`` decides under ``vmap`` over the
+    scenarios; one fallback is counted, read once."""
+    from aircraft_tpu.kernels import cholesky_kernel as jkernel
+
+    args = list(lq_batch(*PROBLEMS["mhtt_shapes"]))
+    args[5][1, 2, 0, 0] += 1e6          # scenario 1, knot 2
+    Bsz = args[0].shape[0]
+    reg = np.full(Bsz, 1e-6, np.float32)
+    monkeypatch.setattr(jkernel, "make_batched_cholesky_solve",
+                        lambda m, k, interpret=False: _fake_kernel_jax)
+    try:
+        jriccati.enable_pallas_chol(True, interpret=True)
+        ref = jax.jit(jax.vmap(jriccati.backward_sequential))(
+            *(jnp.asarray(a) for a in args), jnp.asarray(reg))
+    finally:
+        jriccati.enable_pallas_chol(False)
+    monkeypatch.setattr(riccati, "batched_cholesky_solve", _fake_kernel_torch)
+    riccati.reset_counts()
+    out = riccati.backward_sequential(
+        *(torch.as_tensor(a) for a in args), torch.as_tensor(reg),
+        cuda_chol=True)
+    assert riccati.chol_fallbacks == 0          # not read yet
+    assert riccati.read_fallbacks() == 1
+    for name, o, r in zip(("K", "k"), out[:2], ref[:2]):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=ATOL, err_msg=name)
+    np.testing.assert_array_equal(out[5].numpy(), np.asarray(ref[5]))
+    # a sweep that fell back whole would hold every knot's true gains
+    whole = riccati.backward_sequential(
+        *(torch.as_tensor(a) for a in args), torch.as_tensor(reg))
+    assert np.abs(out[1][:, 3:].numpy() - whole[1][:, 3:].numpy()).max() > 0.1
 

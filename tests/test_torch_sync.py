@@ -125,3 +125,24 @@ def test_warm_serve_step_makes_no_host_sync(course, fused):
     assert bool(torch.isfinite(pull[0]).all())
     _, found = audit(m._serve_step_multi, z, us, torch.zeros(N, 7), al, 6)
     assert found == []
+
+
+def test_kernel_route_sweep_makes_no_host_sync():
+    rng = np.random.default_rng(0)
+    Bsz, N_, n, m = 4, 6, 14, 7
+    W = rng.normal(0, 1, (Bsz, N_, n + m, n + m))
+    H = np.einsum("bkij,bklj->bkil", W, W) / (n + m) + np.eye(n + m)
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in (
+        np.eye(n) + rng.normal(0, 0.1, (Bsz, N_, n, n)),
+        rng.normal(0, 0.1, (Bsz, N_, n, m)), rng.normal(0, 1, (Bsz, N_, n)),
+        rng.normal(0, 1, (Bsz, N_, m)), H[..., :n, :n], H[..., n:, n:],
+        H[..., n:, :n], rng.normal(0, 1, (Bsz, n)),
+        np.tile(np.eye(n), (Bsz, 1, 1)))]
+    reg = torch.full((Bsz,), 1e-6)
+    riccati.backward_sequential(*args, reg, cuda_chol=True)    # warm-up
+    riccati.reset_counts()
+    out, found = audit(lambda: riccati.backward_sequential(
+        *args, reg, cuda_chol=True))
+    assert found == []
+    assert bool(torch.isfinite(out[0]).all())
+    assert riccati.read_fallbacks() == 0
