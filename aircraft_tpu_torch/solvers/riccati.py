@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from aircraft_tpu_torch.kernels.cholesky import batched_cholesky_solve
+from aircraft_tpu_torch.kernels.cholesky import MAX_M, batched_cholesky_solve
 
 V_LIM = 1e14    # value-function clamp: far above AL curvature, far below f32 overflow
 
@@ -82,8 +82,11 @@ def chol_solve_kernel(M, rhs, reg):
     """The kernel route: ``batched_cholesky_solve`` on ½(M+Mᵀ) + reg·I; the
     whole batch takes ``chol_solve_reference``'s result when any entry of
     X is non-finite.  Both are computed and selected on the device, and
-    the fallback is counted there (``read_fallbacks``).  Returns (X,
-    bad)."""
+    the fallback is counted there (``read_fallbacks``).  Systems larger
+    than the kernel takes (m > ``MAX_M``) go to the reference route, as
+    the reference sends them to its library solve.  Returns (X, bad)."""
+    if M.shape[-1] > MAX_M:
+        return chol_solve_reference(M, rhs, reg)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     X = batched_cholesky_solve(_sym(M) + reg[:, None, None] * eye, rhs)
     fell_back = ~torch.isfinite(X).all()

@@ -129,3 +129,25 @@ def test_kernel_route_falls_back_at_one_knot_for_the_whole_batch(
         *(torch.as_tensor(a) for a in args), torch.as_tensor(reg))
     assert np.abs(out[1][:, 3:].numpy() - whole[1][:, 3:].numpy()).max() > 0.1
 
+
+def test_kernel_route_sends_m_above_16_to_the_reference_route():
+    """m = 17 exceeds the kernel (which still refuses it): the kernel route
+    takes the reference route, as the reference takes its library solve,
+    and counts no fallback."""
+    rng = np.random.default_rng(4)
+    Bsz, m, k = 5, 17, 3
+    W = rng.normal(0, 1, (Bsz, m, m))
+    M = torch.as_tensor(np.einsum("bij,bkj->bik", W, W) / m + np.eye(m),
+                        dtype=torch.float32)
+    rhs = torch.as_tensor(rng.normal(0, 1, (Bsz, m, k)), dtype=torch.float32)
+    reg = torch.full((Bsz,), 1e-6)
+    with pytest.raises(ValueError):
+        cholesky.batched_cholesky_solve(M, rhs)
+    cholesky.reset_launch_counts()
+    riccati.reset_counts()
+    X, bad = riccati.chol_solve_kernel(M, rhs, reg)
+    X_ref, bad_ref = riccati.chol_solve_reference(M, rhs, reg)
+    np.testing.assert_array_equal(X.numpy(), X_ref.numpy())
+    np.testing.assert_array_equal(bad.numpy(), bad_ref.numpy())
+    assert riccati.read_fallbacks() == 0
+    assert cholesky.batched_cholesky_solve.launches == 0
