@@ -6,9 +6,11 @@ batch first and the iteration runs once for the whole batch.
 
 * dynamics sensitivities A_k, B_k: forward mode over all B·N knots at once
   (``ops/autodiff.batched_jacfwd``), sanitised and clamped at 1e6;
-* Gauss-Newton curvature (``quadraticize_gn``): the residual JᵀJ form, or
+* the exact AL Hessian (``quadraticize``, ``hessian='exact'``, the
+  default): gradient and Hessian of the AL stage and terminal costs; or
+  Gauss-Newton curvature (``quadraticize_gn``): the residual JᵀJ form, or
   the stage cost's exact Hessian, plus active-set PHR inequality and
-  equality blocks and the terminal blocks, sanitised at 1e8;
+  equality blocks and the terminal blocks; either sanitised at 1e8;
 * the sequential Riccati sweep (``solvers/riccati.py``), each knot's Quu
   solve on the reference route or, with ``cuda_chol``, on the
   batched-Cholesky kernel;
@@ -18,9 +20,9 @@ batch first and the iteration runs once for the whole batch.
   so every scenario sees the same regularisation trail and ``grad_norm``
   as in the reference.
 
-Not ported: ``hessian='exact'`` and ``riccati='associative'`` raise
-NotImplementedError; ``batch_minor``, a TPU lane-layout choice with no
-effect on the result, raises too.
+Not ported: ``riccati='associative'`` raises NotImplementedError;
+``batch_minor``, a TPU lane-layout choice with no effect on the result,
+raises too.
 """
 
 from __future__ import annotations
@@ -78,6 +80,33 @@ def linearize(ocp: OCPFunctions, xs, us):
                        _knots(us))
     J = _san(J, 1e6).reshape(Bz, N, n, n + m)
     return J[..., :n], J[..., n:]
+
+
+def quadraticize(ocp: OCPFunctions, al: ALState, xs, us):
+    """Exact expansion of the AL: the gradient and Hessian of
+    ``ocp_mod.al_stage_cost`` over z = (x, u) at every knot, all B·N at
+    once, sliced into lx (B,N,n), lu (B,N,m), lxx, luu and the cross
+    block lux (B,N,m,n) = ∂²c/∂u∂x; and the gradient vx (B,n) and Hessian
+    vxx of ``al_terminal_cost``.  Not yet sanitised.  Indefinite where
+    the constraint terms' curvature is."""
+    Bz, N, m = us.shape
+    n = xs.shape[-1]
+    ks = _knot_index(Bz, N, xs.device)
+    lam_g, lam_h = al.lam_ineq.flatten(0, 1), al.lam_eq.flatten(0, 1)
+    mu = al.mu.repeat_interleave(N)
+    mu_row = al.mu_row.repeat_interleave(N, dim=0)
+
+    def stage(z):
+        return ocp_mod._stage_al(ocp, lam_g, lam_h, mu, mu_row, z[..., :n],
+                                 z[..., n:], ks)
+
+    g, H = batched_grad_hessian(
+        stage, torch.cat([_knots(xs[:, :-1]), _knots(us)], dim=-1))
+    vx, vxx = batched_grad_hessian(
+        lambda x: ocp_mod.al_terminal_cost(ocp, al, x), xs[:, -1])
+    shape = lambda t: t.reshape((Bz, N) + t.shape[1:])
+    return (shape(g[..., :n]), shape(g[..., n:]), shape(H[..., :n, :n]),
+            shape(H[..., n:, n:]), shape(H[..., n:, :n]), vx, vxx)
 
 
 def quadraticize_gn(ocp: OCPFunctions, al: ALState, xs, us,
@@ -284,10 +313,6 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
     sends the sweep's Quu solves to the batched-Cholesky kernel; its
     numeric fallbacks are read into ``riccati.chol_fallbacks`` once, at
     the end of the solve."""
-    if config.hessian != "gauss_newton":
-        raise NotImplementedError(
-            f"hessian={config.hessian!r}: only the Gauss-Newton expansion is "
-            "ported (the full AL Hessian is not yet)")
     Bz, N, _ = us_init.shape
     dev, dtype = x0s.device, x0s.dtype
     alphas = _alpha_vector(config.line_search_steps, dtype, dev)
@@ -313,7 +338,9 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
             cost_prev = (ocp_mod.al_total_cost(ocp, al, xs, us)
                          + FREEZE_PENALTY * nfro)
             A, Bm = linearize(ocp, xs, us)
-            quad = quadraticize_gn(ocp, al, xs, us, use_residuals=use_res)
+            quad = (quadraticize_gn(ocp, al, xs, us, use_residuals=use_res)
+                    if config.hessian == "gauss_newton"
+                    else quadraticize(ocp, al, xs, us))
             lx, lu, lxx, luu, lux, vx, vxx = (_san(t, 1e8) for t in quad)
             K, kff, _, _, qu_max, fail = backward_pass(
                 A, Bm, lx, lu, lxx, luu, lux, vx, vxx, reg, config.riccati,

@@ -15,8 +15,11 @@ reversed-flow scenarios) built in both packages from the same numbers:
 * the line search on that iteration's gains returns a true rollout no
   dearer than the incumbent (the whole solve is held against the
   reference's in tests/test_torch_fused.py);
-* the options that are not ported raise, and a trajectory warm start is
-  pinned at x0 and replaced by a true rollout.
+* the exact expansion (``quadraticize``, ``hessian='exact'``) against the
+  reference's ``_quadraticize`` elementwise, and one inner iteration's
+  gains on it within 1e-2;
+* the options once refused now solve, ``batch_minor`` raises, and a
+  trajectory warm start is pinned at x0 and replaced by a true rollout.
 
 Each reference piece is its own small jit.
 """
@@ -144,6 +147,55 @@ def test_quadraticize_gn(case, quad_residual, variant):
 
 
 @pytest.fixture(scope="module")
+def quad_exact(case):
+    """The reference's exact expansion (``_quadraticize``) and the
+    port's."""
+    f = jax.jit(jax.vmap(lambda x, w, a: jilqr._quadraticize(
+        case["jocp"], a, x, w)))
+    with jax.default_matmul_precision("highest"):
+        ref = [np.asarray(t) for t in f(jnp.asarray(case["xs"].numpy()),
+                                         jnp.asarray(case["ws"].numpy()),
+                                         case["jal"])]
+    return ref, ilqr.quadraticize(case["tocp"], case["al"], case["xs"],
+                                  case["ws"])
+
+
+def test_quadraticize_exact(quad_exact):
+    """Elementwise within 1e-3 relative plus 1e-3 of each block's largest
+    entry: float32 second derivatives of the AL, whose penalty terms
+    scale some rows by mu · mu_row up to 1e2 here."""
+    ref, out = quad_exact
+    for name, o, r in zip(("lx", "lu", "lxx", "luu", "lux", "vx", "vxx"),
+                          out, ref):
+        assert o.shape == r.shape, name
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-3,
+                                   atol=1e-3 * (1.0 + np.abs(r).max()),
+                                   err_msg=name)
+
+
+def test_one_exact_inner_iteration_gains(linearized, quad_exact):
+    """One inner iteration with the exact expansion: the port's gains
+    against the reference's sweep on the reference's expansion, within
+    1e-2 relative as the Gauss-Newton iteration is held."""
+    san = lambda t, lim: jnp.clip(
+        jnp.nan_to_num(jnp.asarray(t), nan=0.0, posinf=0.0, neginf=0.0),
+        -lim, lim)
+    (A_ref, B_ref), (A, Bm) = linearized
+    ref, out = quad_exact
+    with jax.default_matmul_precision("highest"):
+        K_ref, k_ref, *_, fail_ref = jax.jit(jax.vmap(
+            jriccati.backward_sequential))(
+            san(A_ref, 1e6), san(B_ref, 1e6), *(san(t, 1e8) for t in ref),
+            jnp.full((B,), 1e-6, jnp.float32))
+    K, k, *_, fail = ilqr.backward_pass(A, Bm, *(ilqr._san(t, 1e8)
+                                                 for t in out),
+                                        torch.full((B,), 1e-6))
+    np.testing.assert_array_equal(fail.numpy(), np.asarray(fail_ref))
+    assert _rel(K.numpy(), K_ref) < 1e-2
+    assert _rel(k.numpy(), k_ref) < 1e-2
+
+
+@pytest.fixture(scope="module")
 def gains(case, linearized):
     """One inner iteration's backward pass in the port."""
     _, (A, Bm) = linearized
@@ -211,9 +263,18 @@ def test_forward_pass_honours_the_feedback_mask(case, gains):
                                      riccati="associative")],
                          ids=["hessian_exact", "riccati_associative"])
 def test_unported_options_raise(case, kw):
-    with pytest.raises(NotImplementedError):
-        ilqr.solve_batch(case["tocp"], case["xs"][:, 0], case["ws"],
-                         SolverConfig(**kw))
+    """Both options were refused before the port had them; each now
+    solves, to finite results."""
+    cfg = SolverConfig(max_al_iters=1, max_inner_iters=2,
+                       line_search_steps=3, **kw)
+    if kw.get("riccati") == "associative":
+        with pytest.raises(NotImplementedError):
+            ilqr.solve_batch(case["tocp"], case["xs"][:, 0], case["ws"], cfg)
+        return
+    sol = ilqr.solve_batch(case["tocp"], case["xs"][:, 0], case["ws"], cfg)
+    for t in (sol.xs, sol.us, sol.cost, sol.violation, sol.grad_norm):
+        assert bool(torch.isfinite(t).all())
+    assert SolverConfig().hessian == "exact"    # the default now solves
 
 
 def test_batch_minor_raises(case):
