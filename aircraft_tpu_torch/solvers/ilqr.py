@@ -11,18 +11,17 @@ batch first and the iteration runs once for the whole batch.
   Gauss-Newton curvature (``quadraticize_gn``): the residual JᵀJ form, or
   the stage cost's exact Hessian, plus active-set PHR inequality and
   equality blocks and the terminal blocks; either sanitised at 1e8;
-* the sequential Riccati sweep (``solvers/riccati.py``), each knot's Quu
-  solve on the reference route or, with ``cuda_chol``, on the
-  batched-Cholesky kernel;
+* the Riccati sweep (``solvers/riccati.py``), sequential or associative
+  (``riccati='associative'``), its Quu solves on the reference route or,
+  with ``cuda_chol``, on the batched-Cholesky kernel;
 * a line search over every step size at once, the (B, A) candidates rolled
   out as one batch, a diverged knot frozen in place at a fixed penalty;
 * a fixed trip count with per-scenario ``done`` masking and no early exit,
   so every scenario sees the same regularisation trail and ``grad_norm``
   as in the reference.
 
-Not ported: ``riccati='associative'`` raises NotImplementedError;
-``batch_minor``, a TPU lane-layout choice with no effect on the result,
-raises too.
+Not ported: ``batch_minor``, a TPU lane-layout choice with no effect on
+the result, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -211,13 +210,12 @@ def quadraticize_gn(ocp: OCPFunctions, al: ALState, xs, us,
 
 def backward_pass(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg,
                   mode: str = "sequential", *, cuda_chol: bool = False):
-    """The Riccati sweep (``solvers/riccati.py``); sequential only."""
-    if mode != "sequential":
-        raise NotImplementedError(
-            f"riccati={mode!r}: only the sequential sweep is ported (the "
-            "associative one is not yet)")
-    return riccati_mod.backward_sequential(A, B, lx, lu, lxx, luu, lux, vx,
-                                           vxx, reg, cuda_chol=cuda_chol)
+    """The Riccati sweep (``solvers/riccati.py``): the associative one for
+    ``mode='associative'``, else the sequential one."""
+    sweep = (riccati_mod.backward_associative if mode == "associative"
+             else riccati_mod.backward_sequential)
+    return sweep(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg,
+                 cuda_chol=cuda_chol)
 
 
 def _repeat_al(al: ALState, A: int) -> ALState:

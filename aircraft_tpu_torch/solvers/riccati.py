@@ -1,4 +1,5 @@
-"""The sequential Riccati backward sweep of the iLQR solver, batch-leading.
+"""The Riccati backward sweeps of the iLQR solver, batch-leading:
+sequential, and associative (parallel in time).
 
 Every knot's Quu solve goes one of two routes, both with the reference's
 semantics (``aircraft_tpu/solvers/riccati.py``):
@@ -18,7 +19,11 @@ semantics (``aircraft_tpu/solvers/riccati.py``):
   ``read_fallbacks``, one host read, which ``ilqr.solve_impl`` makes once
   per solve.
 
-The associative (parallel-in-time) sweep is not ported yet.
+The associative sweep (``backward_associative``) reduces the horizon in
+log depth: each knot is a conditional-value element, the elements combine
+associatively (``cv_combine``), and a suffix scan of ⌈log2(N+1)⌉ batched
+combines gives every V_{k+1}; ``recover_gains`` then solves all B·N Quu
+systems in one call, on the kernel route one launch per sweep.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from aircraft_tpu_torch.kernels.cholesky import MAX_M, batched_cholesky_solve
 
 V_LIM = 1e14    # value-function clamp: far above AL curvature, far below f32 overflow
 
-chol_fallbacks = 0   # kernel-route calls whose batch took the reference route
-_pending = []        # 0-dim device flags of kernel-route calls not yet read
+chol_fallbacks = 0   # kernel-route runs of systems that took the reference route
+_pending = []        # device flags of kernel-route runs not yet read
 
 
 def reset_counts() -> None:
@@ -44,7 +49,7 @@ def read_fallbacks() -> int:
     host read, none when there is nothing pending); returns the total."""
     global chol_fallbacks
     if _pending:
-        chol_fallbacks += int(torch.stack(_pending).sum())   # the host read
+        chol_fallbacks += int(torch.cat(_pending).sum())   # the host read
         _pending.clear()
     return chol_fallbacks
 
@@ -78,21 +83,28 @@ def chol_solve_reference(M, rhs, reg):
     return torch.cholesky_solve(rhs, L), bad
 
 
-def chol_solve_kernel(M, rhs, reg):
-    """The kernel route: ``batched_cholesky_solve`` on ½(M+Mᵀ) + reg·I; the
-    whole batch takes ``chol_solve_reference``'s result when any entry of
-    X is non-finite.  Both are computed and selected on the device, and
-    the fallback is counted there (``read_fallbacks``).  Systems larger
-    than the kernel takes (m > ``MAX_M``) go to the reference route, as
-    the reference sends them to its library solve.  Returns (X, bad)."""
+def chol_solve_kernel(M, rhs, reg, groups: int = 1):
+    """The kernel route: ``batched_cholesky_solve`` on ½(M+Mᵀ) + reg·I.  The
+    systems form ``groups`` equal runs of consecutive systems, and a run
+    with any non-finite entry of X takes ``chol_solve_reference``'s result
+    and flags instead: the whole batch by default, as the reference's
+    ``lax.cond`` decides at a knot of the sequential sweep.  Both routes
+    are computed and selected on the device, and the runs that fell back
+    are counted there (``read_fallbacks``).  Systems larger than the
+    kernel takes (m > ``MAX_M``) go to the reference route, as the
+    reference sends them to its library solve.  Returns (X, bad)."""
     if M.shape[-1] > MAX_M:
         return chol_solve_reference(M, rhs, reg)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     X = batched_cholesky_solve(_sym(M) + reg[:, None, None] * eye, rhs)
-    fell_back = ~torch.isfinite(X).all()
+    runs = X.reshape((groups, -1) + X.shape[1:])
+    fell_back = ~torch.isfinite(runs).flatten(1).all(dim=1)     # (groups,)
     _pending.append(fell_back)
     X_ref, bad_ref = chol_solve_reference(M, rhs, reg)
-    return torch.where(fell_back, X_ref, X), fell_back & bad_ref
+    X = torch.where(fell_back[:, None, None, None],
+                    X_ref.reshape(runs.shape), runs).reshape(X.shape)
+    bad = fell_back[:, None] & bad_ref.reshape(groups, -1)
+    return X, bad.reshape(-1)
 
 
 def _clamp(t):
@@ -139,3 +151,135 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
             torch.stack(dv1).sum(0), torch.stack(dv2).sum(0),
             torch.stack(qu).amax(0), fail)
 
+
+
+# ---------------------------------------------------------------------------
+# the associative (parallel-in-time) sweep
+# ---------------------------------------------------------------------------
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def cv_elements(A, B, lx, lu, lxx, luu, lux, reg):
+    """Per-knot conditional-value elements (A_e, b_e, C_e, η_e, J_e), each
+    (Bz, N, ...), for the associative reduction, and the fail flag (Bz,).
+    The cross terms go by ū = u + L x, L = luu⁻¹ lux.  luu's own Cholesky
+    (library, with reg): a scenario where any knot's factor fails takes
+    L = I at every knot and is flagged, as in the reference."""
+    m = B.shape[-1]
+    eye_m = torch.eye(m, dtype=A.dtype, device=A.device)
+    chol, info = torch.linalg.cholesky_ex(_sym(luu)
+                                          + reg[:, None, None, None] * eye_m)
+    fail = ((info > 0) | torch.isnan(chol).any(dim=(-1, -2))).any(dim=1)
+    chol = torch.where(fail[:, None, None, None], eye_m, chol)
+    Lmat = torch.cholesky_solve(lux, chol)
+    lu_bar = torch.cholesky_solve(lu[..., None], chol)[..., 0]
+    luxT = lux.transpose(-1, -2)
+    A_bar = A - B @ Lmat
+    lxx_bar = lxx - luxT @ Lmat
+    lx_bar = lx - _mv(luxT, lu_bar)
+    BRinv = B @ torch.cholesky_solve(eye_m.expand_as(chol), chol)
+    C_e = BRinv @ B.transpose(-1, -2)
+    b_e = -_mv(BRinv, lu)
+    return (A_bar, b_e, C_e, -lx_bar, lxx_bar), fail
+
+
+def cv_terminal(vx, vxx):
+    """Terminal element, appended past the last stage: (0, 0, 0, -vx,
+    vxx), each (Bz, ...)."""
+    z = torch.zeros_like(vxx)
+    return z, torch.zeros_like(vx), z, -vx, vxx
+
+
+def cv_identity(n, dtype=torch.float32, device="cpu", batch=()):
+    """Identity of ``cv_combine``: A = I, everything else zero, with the
+    leading axes ``batch``."""
+    eye = torch.eye(n, dtype=dtype, device=device).expand(batch + (n, n))
+    z = torch.zeros(batch + (n,), dtype=dtype, device=device)
+    return eye, z, torch.zeros_like(eye), z, torch.zeros_like(eye)
+
+
+def cv_combine(e_late, e_early):
+    """The associative combination, over any leading axes, with
+    G = (I + C1 J2)⁻¹:
+        A = A2 G A1
+        b = A2 G (b1 + C1 η2) + b2
+        C = A2 G C1 A2ᵀ + C2
+        η = A1ᵀ Gᵀ (η2 − J2 b1) + η1
+        J = A1ᵀ Gᵀ J2 A1 + J1
+    ``e_late`` holds the later knots, ``e_early`` the earlier ones."""
+    A1, b1, C1, eta1, J1 = e_early
+    A2, b2, C2, eta2, J2 = e_late
+    eye = torch.eye(A1.shape[-1], dtype=A1.dtype, device=A1.device)
+    G, _ = torch.linalg.solve_ex(eye + C1 @ J2, eye.expand_as(C1))
+    A2G = A2 @ G
+    A1T_GT = A1.transpose(-1, -2) @ G.transpose(-1, -2)
+    J = A1T_GT @ J2 @ A1 + J1
+    return (A2G @ A1, _mv(A2G, b1 + _mv(C1, eta2)) + b2,
+            A2G @ C1 @ A2.transpose(-1, -2) + C2,
+            _mv(A1T_GT, eta2 - _mv(J2, b1)) + eta1, _sym(J))
+
+
+def suffix_scan(elems):
+    """Every suffix of the elements along axis 1, S_k = e_k ⊕ … ⊕ e_last
+    (⊕ = ``cv_combine`` with the later part first), in ⌈log2 L⌉ levels of
+    one batched combine each: at the level of offset o, S_k takes
+    cv_combine(S_{k+o}, S_k) for every k with a partner."""
+    L = elems[0].shape[1]
+    o = 1
+    while o < L:
+        late = tuple(e[:, o:] for e in elems)
+        early = tuple(e[:, :L - o] for e in elems)
+        elems = tuple(torch.cat([c, e[:, L - o:]], dim=1)
+                      for c, e in zip(cv_combine(late, early), elems))
+        o *= 2
+    return elems
+
+
+def recover_gains(A, B, lu, luu, lux, Vx_next, Vxx_next, reg, *,
+                  cuda_chol: bool = False):
+    """Every knot's gains from the scanned V_{k+1}, its Quu solves (Bz·N
+    systems) in one call: K (Bz,N,m,n), k (Bz,N,m), dv1, dv2, max |Qu|
+    and the flags, each (Bz,N).  On the kernel route a scenario whose
+    systems give any non-finite entry takes the reference route for all
+    its knots: the reference's rule runs under the outer ``vmap`` over
+    scenarios, so its ``lax.cond`` decides per scenario."""
+    Bz, N = A.shape[:2]
+    BT = B.transpose(-1, -2)
+    Qu = lu + _mv(BT, Vx_next)
+    Quu = luu + BT @ Vxx_next @ B
+    Qux = lux + BT @ Vxx_next @ A
+    M = Quu.flatten(0, 1)
+    rhs = torch.cat([Qu[..., None], Qux], dim=-1).flatten(0, 1)
+    reg_k = reg.repeat_interleave(N)
+    if cuda_chol:
+        sol, bad = chol_solve_kernel(M, rhs, reg_k, groups=Bz)
+    else:
+        sol, bad = chol_solve_reference(M, rhs, reg_k)
+    sol = sol.reshape((Bz, N) + sol.shape[1:])
+    K, k = -sol[..., 1:], -sol[..., 0]
+    dv1 = torch.sum(k * Qu, dim=-1)
+    dv2 = 0.5 * torch.sum(k * _mv(Quu, k), dim=-1)
+    return (K, k, dv1, dv2, torch.amax(torch.abs(Qu), dim=-1),
+            bad.reshape(Bz, N))
+
+
+def backward_associative(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
+                         cuda_chol: bool = False):
+    """O(log N)-depth Riccati sweep: the knots' conditional-value elements
+    and the terminal one reduced by ``suffix_scan``, then every knot's
+    gains at once (``recover_gains``, its solves on the kernel route with
+    ``cuda_chol``).  Arguments and results as ``backward_sequential``."""
+    stage, fail = cv_elements(A, B, lx, lu, lxx, luu, lux, reg)
+    elems = tuple(torch.cat([s, t[:, None]], dim=1)
+                  for s, t in zip(stage, cv_terminal(vx, vxx)))
+    scanned = suffix_scan(elems)
+    # S_k combines knots k..N: V_{k+1} for k = 0..N-1
+    Vx_next, Vxx_next = -scanned[3][:, 1:], scanned[4][:, 1:]
+    K, k, dv1, dv2, qu, bad = recover_gains(A, B, lu, luu, lux, Vx_next,
+                                            Vxx_next, reg,
+                                            cuda_chol=cuda_chol)
+    return (K, k, dv1.sum(1), dv2.sum(1), qu.amax(1),
+            fail | bad.any(dim=1))

@@ -267,10 +267,6 @@ def test_unported_options_raise(case, kw):
     solves, to finite results."""
     cfg = SolverConfig(max_al_iters=1, max_inner_iters=2,
                        line_search_steps=3, **kw)
-    if kw.get("riccati") == "associative":
-        with pytest.raises(NotImplementedError):
-            ilqr.solve_batch(case["tocp"], case["xs"][:, 0], case["ws"], cfg)
-        return
     sol = ilqr.solve_batch(case["tocp"], case["xs"][:, 0], case["ws"], cfg)
     for t in (sol.xs, sol.us, sol.cost, sol.violation, sol.grad_norm):
         assert bool(torch.isfinite(t).all())

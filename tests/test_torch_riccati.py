@@ -93,31 +93,36 @@ def _fake_kernel_torch(a, rhs):
     return torch.where(a[..., :1, :1] > POISON, float("nan"), X)
 
 
-def test_kernel_route_falls_back_at_one_knot_for_the_whole_batch(
-        monkeypatch):
-    """One system of one knot gives a non-finite X: at that knot the whole
-    batch takes the reference route, every other knot keeps the kernel's
-    X, as the reference's ``lax.cond`` decides under ``vmap`` over the
-    scenarios; one fallback is counted, read once."""
+@pytest.mark.parametrize("sweep", ["sequential", "associative"])
+def test_kernel_route_falls_back_as_the_reference_does(monkeypatch, sweep):
+    """One system (scenario 1, knot 2) gives a non-finite X.  The
+    reference's ``lax.cond`` runs under ``vmap`` over the scenarios: in
+    the sequential sweep it decides at each knot for the whole batch,
+    so that knot falls back for every scenario; in the associative
+    sweep's ``recover_gains`` it decides over one scenario's N knots, so
+    that scenario falls back at every knot.  Every other solve keeps the
+    kernel's X.  One fallback is counted, read once.  Held against JAX
+    with the same stand-in kernel."""
     from aircraft_tpu.kernels import cholesky_kernel as jkernel
 
     args = list(lq_batch(*PROBLEMS["mhtt_shapes"]))
-    args[5][1, 2, 0, 0] += 1e6          # scenario 1, knot 2
+    args[5][1, 2, 0, 0] += 1e6
     Bsz = args[0].shape[0]
     reg = np.full(Bsz, 1e-6, np.float32)
     monkeypatch.setattr(jkernel, "make_batched_cholesky_solve",
                         lambda m, k, interpret=False: _fake_kernel_jax)
+    jfn = getattr(jriccati, f"backward_{sweep}")
     try:
         jriccati.enable_pallas_chol(True, interpret=True)
-        ref = jax.jit(jax.vmap(jriccati.backward_sequential))(
-            *(jnp.asarray(a) for a in args), jnp.asarray(reg))
+        ref = jax.jit(jax.vmap(jfn))(*(jnp.asarray(a) for a in args),
+                                     jnp.asarray(reg))
     finally:
         jriccati.enable_pallas_chol(False)
     monkeypatch.setattr(riccati, "batched_cholesky_solve", _fake_kernel_torch)
     riccati.reset_counts()
-    out = riccati.backward_sequential(
-        *(torch.as_tensor(a) for a in args), torch.as_tensor(reg),
-        cuda_chol=True)
+    fn = getattr(riccati, f"backward_{sweep}")
+    out = fn(*(torch.as_tensor(a) for a in args), torch.as_tensor(reg),
+             cuda_chol=True)
     assert riccati.chol_fallbacks == 0          # not read yet
     assert riccati.read_fallbacks() == 1
     for name, o, r in zip(("K", "k"), out[:2], ref[:2]):
@@ -125,9 +130,47 @@ def test_kernel_route_falls_back_at_one_knot_for_the_whole_batch(
                                    rtol=ATOL, err_msg=name)
     np.testing.assert_array_equal(out[5].numpy(), np.asarray(ref[5]))
     # a sweep that fell back whole would hold every knot's true gains
-    whole = riccati.backward_sequential(
-        *(torch.as_tensor(a) for a in args), torch.as_tensor(reg))
-    assert np.abs(out[1][:, 3:].numpy() - whole[1][:, 3:].numpy()).max() > 0.1
+    whole = fn(*(torch.as_tensor(a) for a in args), torch.as_tensor(reg))
+    assert np.abs(out[1][0].numpy() - whole[1][0].numpy()).max() > 0.1
+
+
+def _reg(Bsz):
+    return np.full(Bsz, 1e-6, np.float32)
+
+
+@pytest.mark.parametrize("N", [8, 33])
+def test_backward_associative_matches_reference(N):
+    """The port's associative sweep against ``jax.vmap`` of the
+    reference's on the reference route, n = 14, m = 7, at 2e-3 as
+    tests/test_riccati.py holds the reference's two sweeps."""
+    args = lq_batch(3, N, 14, 7, N)
+    reg = _reg(3)
+    ref = jax.jit(jax.vmap(jriccati.backward_associative))(
+        *(jnp.asarray(a) for a in args), jnp.asarray(reg))
+    riccati.reset_counts()
+    out = riccati.backward_associative(*(torch.as_tensor(a) for a in args),
+                                       torch.as_tensor(reg))
+    for name, o, r in zip(("K", "k", "dv1", "dv2", "qu_max"), out[:5],
+                          ref[:5]):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=ATOL,
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_array_equal(out[5].numpy(), np.asarray(ref[5]))
+    # the kernel route (its plain version on the CPU) gives the same
+    kern = riccati.backward_associative(*(torch.as_tensor(a) for a in args),
+                                        torch.as_tensor(reg), cuda_chol=True)
+    np.testing.assert_allclose(kern[0].numpy(), out[0].numpy(), rtol=ATOL,
+                               atol=ATOL)
+    assert riccati.read_fallbacks() == 0
+
+
+def test_cv_identity_is_the_identity_of_the_combine():
+    args = [torch.as_tensor(a) for a in lq_batch(2, 5, 6, 3, 5)]
+    elems, _ = riccati.cv_elements(*args[:7], torch.as_tensor(_reg(2)))
+    ident = riccati.cv_identity(6, batch=(2, 5))
+    for left, right in ((ident, elems), (elems, ident)):
+        for c, e in zip(riccati.cv_combine(left, right), elems):
+            np.testing.assert_allclose(c.numpy(), e.numpy(), rtol=1e-6,
+                                       atol=1e-6)
 
 
 def test_kernel_route_sends_m_above_16_to_the_reference_route():

@@ -10,8 +10,8 @@ CPU as well, so these tests audit, after one warm-up call:
   window kernels' path (``fused=True``, their plain versions here) and on
   the iLQR path (``fused=False``), and ``_serve_step_multi`` with its six
   candidates;
-* ``riccati.backward_sequential(..., cuda_chol=True)``, the kernel route
-  with its per-knot fallback rule.
+* ``riccati.backward_sequential`` and ``backward_associative`` on the
+  kernel route (``cuda_chol=True``) with their fallback rules.
 
 Flagged: ``torch.tensor`` / ``torch.as_tensor`` / ``Tensor.new_tensor``
 given host data with a device; ``Tensor.__bool__``, ``__float__``,
@@ -127,7 +127,8 @@ def test_warm_serve_step_makes_no_host_sync(course, fused):
     assert found == []
 
 
-def test_kernel_route_sweep_makes_no_host_sync():
+@pytest.mark.parametrize("sweep", ["sequential", "associative"])
+def test_kernel_route_sweep_makes_no_host_sync(sweep):
     rng = np.random.default_rng(0)
     Bsz, N_, n, m = 4, 6, 14, 7
     W = rng.normal(0, 1, (Bsz, N_, n + m, n + m))
@@ -139,10 +140,10 @@ def test_kernel_route_sweep_makes_no_host_sync():
         H[..., n:, :n], rng.normal(0, 1, (Bsz, n)),
         np.tile(np.eye(n), (Bsz, 1, 1)))]
     reg = torch.full((Bsz,), 1e-6)
-    riccati.backward_sequential(*args, reg, cuda_chol=True)    # warm-up
+    fn = getattr(riccati, f"backward_{sweep}")
+    fn(*args, reg, cuda_chol=True)    # warm-up
     riccati.reset_counts()
-    out, found = audit(lambda: riccati.backward_sequential(
-        *args, reg, cuda_chol=True))
+    out, found = audit(lambda: fn(*args, reg, cuda_chol=True))
     assert found == []
     assert bool(torch.isfinite(out[0]).all())
     assert riccati.read_fallbacks() == 0
