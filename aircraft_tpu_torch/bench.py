@@ -34,6 +34,15 @@ PyTorch rollout (kernel mode) or ``torch.linalg.cholesky_ex`` +
 ``torch.cholesky_solve`` (chol mode).  Times are host wall clock around a
 synchronised call, the median of ``--reps`` (5 and 7 by default).
 
+``--mode riccati`` (``BENCH_MODE=riccati``): the sequential against the
+associative Riccati sweep on one horizon of the reference mode's stage
+data (n = 13, m = 7, ``np.random.default_rng(0)``) at each of
+``--horizons`` (50, 200, 800, 3200), timed by CUDA events (median of
+``--reps``, 7), with the largest |K| difference between the two sweeps;
+``--cuda-chol`` puts their Quu solves on the batched-Cholesky kernel.  It
+prints the reference mode's keys, ``device`` holding the card's name and
+power limit.
+
 ``--mode latency`` (``BENCH_MODE=latency``): one aircraft's N=50 window
 solve at the headline budget, ``--reps`` times (30) from the same state,
 p50 / p90 against the 0.2 s of flight a window commits.  ``--mode serve``
@@ -51,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import numpy as np
@@ -355,6 +365,91 @@ def bench_chol(device="cuda", *, batch=256 * 50, reps=7) -> dict:
     }
 
 
+def riccati_problem(N, rng, n=13, m=7):
+    """The reference riccati mode's stage data for one horizon of N knots
+    (a batch of one), float32, drawn from ``rng`` in the reference's
+    order: A ≈ I, small B, PD lxx and luu, small cross terms, vx, vxx = I."""
+    A = np.eye(n)[None] + 0.01 * rng.normal(0, 1, (N, n, n))
+    B = 0.01 * rng.normal(0, 1, (N, n, m))
+    lx = rng.normal(0, 1, (N, n))
+    lu = rng.normal(0, 1, (N, m))
+    W = rng.normal(0, 1, (N, n, n))
+    lxx = np.einsum("bij,bkj->bik", W, W) / n + np.eye(n)[None]
+    U = rng.normal(0, 1, (N, m, m))
+    luu = np.einsum("bij,bkj->bik", U, U) / m + np.eye(m)[None]
+    lux = 0.01 * rng.normal(0, 1, (N, m, n))
+    vx = rng.normal(0, 1, n)
+    vxx = np.eye(n)
+    return tuple(np.asarray(a, np.float32)[None]
+                 for a in (A, B, lx, lu, lxx, luu, lux, vx, vxx))
+
+
+def _median_ms(fn, args, reps, dev):
+    """Median time of ``reps`` calls after a warm one: CUDA events around
+    each call on the card, the host clock on the CPU."""
+    fn(*args)
+    walls = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            stop.record()
+            stop.synchronize()
+            walls.append(start.elapsed_time(stop))
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def _card(dev) -> str:
+    """The card's name and power limit as nvidia-smi reports them, or
+    "cpu"."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", f"--id={dev.index or 0}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def bench_riccati(device="cuda", *, horizons=(50, 200, 800, 3200), reps=7,
+                  cuda_chol=False) -> dict:
+    """The sequential against the associative Riccati sweep over horizon
+    lengths on one horizon of the reference mode's stage data (n = 13,
+    m = 7), with the largest |K| difference between them; float32
+    matmuls run at full precision throughout (``device.py``)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    reg = torch.full((1,), 1e-6, device=dev)
+    rows = {}
+    for N in horizons:
+        args = tuple(torch.as_tensor(a, device=dev)
+                     for a in riccati_problem(N, rng)) + (reg,)
+        seq = lambda *a: riccati.backward_sequential(*a, cuda_chol=cuda_chol)
+        assoc = lambda *a: riccati.backward_associative(*a,
+                                                        cuda_chol=cuda_chol)
+        ts, ta = _median_ms(seq, args, reps, dev), _median_ms(assoc, args,
+                                                              reps, dev)
+        K_s, K_a = seq(*args)[0], assoc(*args)[0]
+        rows[f"N{N}"] = {
+            "seq_ms": round(ts, 3), "assoc_ms": round(ta, 3),
+            "speedup": round(ts / ta, 3),
+            "max_K_diff": float(torch.max(torch.abs(K_s - K_a))),
+        }
+    biggest = rows[f"N{horizons[-1]}"]
+    return {
+        "metric": "riccati_associative_speedup_vs_sequential",
+        "value": biggest["speedup"], "unit": "x",
+        "vs_baseline": biggest["speedup"], "horizons": rows,
+        "cuda_chol": cuda_chol, "matmul_precision": matmul_precision(),
+        "device": _card(dev),
+    }
+
+
 def serving_problem(device="cuda", *, horizon=N_HORIZON, al_iters=3,
                     inner_iters=12, ls=6, solver="fused", seed=0):
     """One aircraft on the headline problem: a healthy on-track state
@@ -576,11 +671,12 @@ def bench_serve(device="cuda", *, windows=50, pipeline=True, horizon=N_HORIZON,
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("headline", "kernel", "chol",
-                                      "latency", "serve"),
+                                      "riccati", "latency", "serve"),
                    default="headline")
     p.add_argument("--solver", choices=("fused", "ilqr"), default="fused")
     p.add_argument("--cuda-chol", action="store_true",
-                   help="ilqr solver: Quu solves on the batched-Cholesky kernel")
+                   help="ilqr solver and riccati mode: Quu solves on the "
+                   "batched-Cholesky kernel")
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch", type=int, default=None,
                    help="256 (headline), 1024 (kernel), 12800 (chol)")
@@ -592,7 +688,9 @@ def main(argv=None) -> None:
     p.add_argument("--warmup", type=int, default=6)
     p.add_argument("--reps", type=int, default=None,
                    help="timed windows (3) or timed calls (kernel 5, chol 7, "
-                   "latency 30)")
+                   "riccati 7, latency 30)")
+    p.add_argument("--horizons", default="50,200,800,3200",
+                   help="riccati mode: comma-separated horizons")
     p.add_argument("--windows", type=int, default=50, help="serve mode")
     p.add_argument("--no-pipeline", action="store_true",
                    help="serve mode: the synchronous loop")
@@ -603,6 +701,10 @@ def main(argv=None) -> None:
                            substeps=a.substeps, reps=a.reps or 5)
     elif a.mode == "chol":
         out = bench_chol(a.device, batch=a.batch or 256 * 50, reps=a.reps or 7)
+    elif a.mode == "riccati":
+        out = bench_riccati(a.device, horizons=tuple(
+            int(h) for h in a.horizons.split(",")), reps=a.reps or 7,
+            cuda_chol=a.cuda_chol)
     elif a.mode == "latency":
         out = bench_latency(a.device, horizon=a.horizon, al_iters=a.al_iters,
                             inner_iters=a.inner_iters, ls=a.line_search,

@@ -1,13 +1,23 @@
-"""The port's sequential Riccati sweep against ``jax.vmap`` of the
-reference's ``riccati.backward_sequential``, on both Quu-solve routes:
-the reference route (Cholesky with the Gershgorin retry) against the
-reference's, and the kernel route (the batched-Cholesky kernel's plain
-version) against the reference's Pallas kernel in interpret mode.
+"""The port's Riccati sweeps against ``jax.vmap`` of the reference's.
 
-Problems: tests/test_riccati.py's batched one (3 scenarios, N=6, n=5,
-m=3) and one at the MHTT shapes (n=14, m=7, N=6).  Held at atol 2e-3 as
-tests/test_riccati.py holds the two reference routes.
+* The sequential sweep on both Quu-solve routes: the reference route
+  (Cholesky with the Gershgorin retry) against the reference's, and the
+  kernel route (the batched-Cholesky kernel's plain version) against the
+  reference's Pallas kernel in interpret mode.  Problems:
+  tests/test_riccati.py's batched one (3 scenarios, N=6, n=5, m=3) and one
+  at the MHTT shapes (n=14, m=7, N=6).
+* The associative sweep against the reference's at n=14, m=7, N in
+  {8, 33}, the identity of its combine, and the riccati bench mode.
+* The kernel route's fallback: one non-finite system injected through a
+  stand-in kernel in both packages falls back at the reference's
+  granularity (the whole batch at a knot of the sequential sweep, one
+  scenario in the associative sweep's gain recovery); m = 17 takes the
+  reference route.
+
+Held at 2e-3 as tests/test_riccati.py holds the two reference sweeps.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -194,3 +204,29 @@ def test_kernel_route_sends_m_above_16_to_the_reference_route():
     np.testing.assert_array_equal(bad.numpy(), bad_ref.numpy())
     assert riccati.read_fallbacks() == 0
     assert cholesky.batched_cholesky_solve.launches == 0
+
+
+# the reference's BENCH_MODE=riccati JSON keys (bench.py:227-234)
+RICCATI_MODE_FIELDS = ("metric", "value", "unit", "vs_baseline", "horizons",
+                       "device")
+
+
+@pytest.mark.parametrize("cuda_chol", [[], ["--cuda-chol"]],
+                         ids=["reference-route", "kernel-route"])
+def test_bench_riccati_mode_prints_the_reference_fields(capsys, cuda_chol):
+    """`python -m aircraft_tpu_torch.bench --mode riccati` at two short
+    horizons: the reference's keys, each horizon's row, and the two sweeps
+    agreeing within 2e-3."""
+    from aircraft_tpu_torch import bench
+
+    bench.main(["--device", "cpu", "--mode", "riccati", "--horizons", "6,17",
+                "--reps", "1"] + cuda_chol)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(RICCATI_MODE_FIELDS) <= set(line)
+    assert line["device"] == "cpu" and line["matmul_precision"] == "highest"
+    assert line["cuda_chol"] == bool(cuda_chol)
+    assert set(line["horizons"]) == {"N6", "N17"}
+    for row in line["horizons"].values():
+        assert set(row) == {"seq_ms", "assoc_ms", "speedup", "max_K_diff"}
+        assert row["max_K_diff"] < ATOL
+    assert line["value"] == line["horizons"]["N17"]["speedup"]
