@@ -171,6 +171,36 @@ def test_dual_carry_cuts_steady_state_violation(pair):
     assert np.all(np.isfinite(viols[True]))
 
 
+@pytest.mark.slow
+def test_dual_carry_meets_the_reference_contract(pair):
+    """The reference's own dual-carry contract
+    (tests/test_control.py::TestDualWarmStart): at 2 AL rounds x 10 inner
+    iterations with the exact Hessian (the SolverConfig default), over 12
+    windows, the carried duals' steady-state violation (windows 4-11)
+    below 0.75x the cold duals'.  Minutes on a CPU, hence slow."""
+    _, pt = pair
+    z0 = torch.as_tensor(np.concatenate(
+        [pt["config"].waypoints.initial_state, [0.0]]).astype(np.float32))
+    viols = {}
+    for dual in (False, True):
+        m = MHTT(pt["params"], pt["config"], pt["track"], **WINDOW,
+                 solver_config=SolverConfig(max_al_iters=2,
+                                            max_inner_iters=10),
+                 dual_carry=dual, fused=False, device="cpu")
+        z, us, al = z0, torch.zeros(N, 7), m._al0
+        vs = []
+        for _ in range(12):
+            z, us, al, pull = m._serve_step(z, us, al)
+            vs.append(float(finish_pull(pull)[-3]))
+        viols[dual] = np.asarray(vs)
+    ss_off, ss_on = viols[False][4:].mean(), viols[True][4:].mean()
+    print(f"dual carry: cold {viols[False].tolist()}, carried "
+          f"{viols[True].tolist()}; steady state {ss_off} -> {ss_on} "
+          f"({ss_on / ss_off:.3f}x)")
+    assert ss_on < 0.75 * ss_off, (ss_off, ss_on)
+    assert np.all(np.isfinite(viols[True]))
+
+
 def test_multi_candidate_run(port):
     m, x0 = port
     out = m.run(x0, max_windows=2, progress_target=0.95,
