@@ -36,24 +36,41 @@ must pass or the script exits non-zero without a result line:
    problem (N=30, 5 substeps, default aero, the course track and knobs,
    the AL control box), and timed in a CUDA graph of 20 calls (`ms_b1`,
    `ms_b6`, `ms_course_b6` on the kernels line);
-6. paths    - each path with every launch counter reset just before and
+6. sync audit - under torch.cuda.set_sync_debug_mode("error"), after a
+              warm-up call each: MHTT._serve_step on the window kernels
+              (B=1) and on the iLQR path, _serve_step_multi with its six
+              candidates on both, up to the blob's pull, and both Riccati
+              sweeps on the Cholesky kernel route at B=256, N=50 on the
+              exact expansion.  A synchronising call raises there: the
+              phase prints its traceback and the smoke fails
+              ("sync audit: <what>: <error>"); a clean call prints
+              "sync audit: <what>: no synchronising call";
+7. paths    - each path with every launch counter reset just before and
               read just after: the fused serving chain (python -m
               aircraft_tpu_torch.bench, a cold window and two chained
-              windows); one iLQR inner iteration timed piece by piece, with
-              the device's busy share from torch.profiler; the iLQR chain
-              (--solver ilqr --cuda-chol: a cold and a chained window, 50
-              Cholesky launches per backward pass, the numeric fallback on
-              at most a tenth of them, no window kernel); the kernel bench
-              mode (two timed calls each) and the chol bench mode; the
-              serving loop: the latency mode (10 reps), the serve mode
-              (pipelined, 20 windows, native telemetry, nothing dropped;
-              then 5 synchronous windows for the solve / copy / push split),
-              5 windows of MHTT.run on the headline plant and budget
-              pipelined and then synchronous (the same commits, bit for
-              bit) and 8 windows of the course flight with 6 candidates,
-              each window kernel launched once per inner iteration of
-              every window solve;
-7. report   - one JSON line of the kernels, the card's name and power
+              windows); one fused and one iLQR inner iteration timed
+              piece by piece (host wall; the device's busy share from
+              torch.profiler), and one backward pass on each Quu-solve
+              route; the iLQR chain (--solver ilqr --cuda-chol: a cold and
+              a chained window, 50 Cholesky launches per backward pass,
+              the numeric fallback on at most a tenth of them, no window
+              kernel); one fleet window with the exact Hessian on the
+              Cholesky kernel route (1 AL x 4 inner), sequential (50
+              launches per backward pass) and associative (1 launch per
+              backward pass, its B*N = 12800 systems), the kernel held
+              against its plain version on the associative sweep's first
+              batch of those (indefinite) systems, and the two sweeps
+              held at 2e-3 on an LQ batch at the fleet's shape; the
+              kernel, chol and riccati bench modes; the serving loop: the
+              latency mode (10 reps), the serve mode pipelined and then
+              synchronous over 10 windows each (native telemetry, nothing
+              dropped; the two cadences printed side by side), 5 windows
+              of MHTT.run on the headline plant and budget pipelined and
+              then synchronous (the same commits, bit for bit) and 8
+              windows of the course flight with 6 candidates, each window
+              kernel launched once per inner iteration of every window
+              solve;
+8. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
 Every kernel has two times.  `ms` is its device time, the kernel's own:
@@ -922,6 +939,371 @@ def check_window_launches(label, solves, per_solve):
                                             "window_forward")}
 
 
+def headline_mhtt(solver_config, fused=None, device="cuda"):
+    """MHTT on the headline plant, track and knobs (no tanh squash: MHTT
+    has no squash knob, as in the reference), and the fleet's first
+    glider at s = 0.1 with its trim controls: (mhtt, z0 (1, 14), us0
+    (N, 7))."""
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.control.course import COURSE_OCP_KNOBS
+    from aircraft_tpu_torch.control.mhtt import MHTT
+
+    cfg, params, _, track, v_ref, _ = bench.build_problem(device)
+    knobs = dict(COURSE_OCP_KNOBS)
+    knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
+                                   "unit_scales": True}
+    mhtt = MHTT(params, cfg, track, num_nodes=bench.N_HORIZON, dt=bench.DT,
+                overlap=bench.OVERLAP, v_ref=v_ref,
+                solver_config=solver_config, fused=fused, device=device,
+                **knobs)
+    z0, trim = bench.fleet_states(params, track, 1, v_ref, s_span=(0.1, 0.1))
+    us0 = trim.control[:7][None].expand(bench.N_HORIZON, 7).contiguous()
+    return mhtt, z0, us0
+
+
+def strict(what, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"), once the work
+    queued before it has finished: a call that synchronises the stream
+    raises there, and fails the smoke with its traceback printed."""
+    import traceback
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        traceback.print_exc()
+        raise SmokeFailure(f"sync audit: {what}: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"sync audit: {what}: no synchronising call", flush=True)
+    return out
+
+
+def sync_audit(ocp, us, inp):
+    """A warm MHTT._serve_step on the window kernels (B=1) and on the iLQR
+    path, and a warm _serve_step_multi with its six candidates on each,
+    up to the blob's pull (start_pull runs outside the audit), then both
+    Riccati sweeps on the kernel route at the fleet's shape on the exact
+    expansion of inp's point: each under strict()."""
+    import numpy as np
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.control import mhtt as mhtt_mod
+    from aircraft_tpu_torch.solvers import ilqr, riccati
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    real_pull = mhtt_mod.start_pull
+
+    def pull_outside_the_audit(blob):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        return real_pull(blob)
+
+    mhtt_mod.start_pull = pull_outside_the_audit
+    try:
+        for fused in (True, False):
+            label = "window kernels" if fused else "iLQR"
+            m, z0, us0 = headline_mhtt(bench.headline_config(1, 2),
+                                       fused=fused, device=us.device)
+            check(m.fused == fused, f"MHTT fused={m.fused}, asked {fused}")
+            z, u, al, pull = m._serve_step(z0[0], us0, m._al0)   # warm-up
+            mhtt_mod.finish_pull(pull)
+            z, u, al, pull = strict(
+                f"warm MHTT._serve_step ({label}, B=1)",
+                lambda: m._serve_step(z, u, al))
+            check(np.isfinite(mhtt_mod.finish_pull(pull)).all(),
+                  f"{label} serve step: a non-finite blob")
+            mhtt_mod.finish_pull(m._serve_step_multi(z, u, us0, al, 6)[3])
+            *_, pull = strict(
+                f"warm MHTT._serve_step_multi ({label}, 6 candidates)",
+                lambda: m._serve_step_multi(z, u, us0, al, 6))
+            check(np.isfinite(mhtt_mod.finish_pull(pull)).all(),
+                  f"{label} six candidates: a non-finite blob")
+    finally:
+        mhtt_mod.start_pull = real_pull
+
+    B, N = us.shape[:2]
+    xs = inp["xs"]
+    al = ocp_mod.init_al_state(ocp, xs[:, 0], us[:, 0], N)
+    A, Bm = ilqr.linearize(ocp, xs, us)
+    quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize(ocp, al, xs, us)]
+    for mode in ("sequential", "associative"):
+        sweep = lambda: ilqr.backward_pass(A, Bm, *quad, inp["reg"], mode,
+                                           cuda_chol=True)
+        sweep()                                                  # warm-up
+        strict(f"riccati backward_{mode} on the kernel route (B={B}, "
+               f"N={N}, exact expansion)", sweep)
+    riccati.read_fallbacks()
+
+
+def lq_sweeps(B, N, device="cuda", n=14, m=7):
+    """Both sweeps on the kernel route on a well-posed LQ batch at the
+    fleet's shape (the bench riccati mode's recipe, per scenario: A ≈ I,
+    PD costs, small cross terms): their gains within 2e-3 (1 + |ref|),
+    and the Cholesky launches of each, counted just around it."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    r = lambda *s: torch.randn(s, device=device, generator=gen)
+    eye = lambda k: torch.eye(k, device=device)
+    W, U = r(B, N, n, n), r(B, N, m, m)
+    args = (eye(n) + 0.01 * r(B, N, n, n), 0.01 * r(B, N, n, m),
+            r(B, N, n), r(B, N, m), W @ W.transpose(-1, -2) / n + eye(n),
+            U @ U.transpose(-1, -2) / m + eye(m), 0.01 * r(B, N, m, n),
+            r(B, n), eye(n).expand(B, n, n).contiguous(),
+            torch.full((B,), 1e-6, device=device))
+    out, launches = {}, {}
+    riccati.reset_counts()
+    for mode in ("sequential", "associative"):
+        cholesky.reset_launch_counts()
+        out[mode] = getattr(riccati, f"backward_{mode}")(*args,
+                                                         cuda_chol=True)
+        launches[mode] = cholesky.batched_cholesky_solve.launches
+    check(riccati.read_fallbacks() == 0, "LQ sweeps fell back")
+    errs = {}
+    for i, name in enumerate(("K", "k")):
+        ok, errs[name] = close(out["associative"][i], out["sequential"][i],
+                               2e-3)
+        check(ok, f"LQ B={B} N={N}: associative {name} differs from "
+              f"sequential by {errs[name]}")
+    print(f"LQ batch B={B} N={N} n={n} m={m} on the kernel route: "
+          f"associative against sequential gains max abs err "
+          f"{json.dumps(errs)} (tol 2e-3 x (1+|ref|)); Cholesky launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(launches == {"sequential": N, "associative": 1},
+          f"LQ sweeps: Cholesky launches {launches}")
+    return {"errs": errs, "launches": launches}
+
+
+def exact_window(ocp, z0s, us):
+    """One fleet window with the exact Hessian on the kernel route (the
+    headline knobs at 1 AL round x 4 inner iterations), once with the
+    sequential sweep and once with the associative one, each with every
+    count reset just before it: returns {mode: record}, the associative
+    solve's first Cholesky batch (B·N systems) and both sweeps' gains at
+    the window's first expansion point."""
+    import dataclasses
+
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import ilqr, riccati
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    B, N = us.shape[:2]
+    records, first = {}, []
+    real = riccati.batched_cholesky_solve
+
+    def capture(a, rhs):
+        if not first:
+            first.append((a.clone(), rhs.clone()))
+        return real(a, rhs)
+
+    for mode in ("sequential", "associative"):
+        config = dataclasses.replace(bench.headline_config(1, 4),
+                                     hessian="exact", riccati=mode)
+        reset_all_counts()
+        if mode == "associative":
+            riccati.batched_cholesky_solve = capture
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = ilqr.solve_batch(ocp, z0s, us, config, cuda_chol=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            riccati.batched_cholesky_solve = real
+        passes = config.max_al_iters * config.max_inner_iters
+        per_pass = N if mode == "sequential" else 1
+        rec = {"wall_s": wall, "backward_passes": passes,
+               "cholesky_launches": cholesky.batched_cholesky_solve.launches,
+               "expected_launches": passes * per_pass,
+               "chol_fallbacks": riccati.chol_fallbacks,
+               "mean_cost": float(sol.cost.mean()),
+               "mean_violation": float(sol.violation.mean()),
+               "converged_fraction_1e2": float(
+                   (sol.violation < 1e-2).float().mean()),
+               "finite": all(bool(t.isfinite().all()) for t in (
+                   sol.xs, sol.us, sol.cost, sol.violation))}
+        print(f"exact window, {mode} sweep on the kernel route (B={B}, "
+              f"N={N}, 1 x 4): " + json.dumps(rec), flush=True)
+        check(rec["finite"], f"exact window, {mode}: non-finite results")
+        check(rec["cholesky_launches"] == rec["expected_launches"],
+              f"exact window, {mode}: {rec['cholesky_launches']} Cholesky "
+              f"launches, expected {rec['expected_launches']}")
+        records[mode] = rec
+    check(bool(first) and first[0][0].shape[0] == B * N,
+          "the associative sweep did not hand the kernel its B*N systems")
+    # both sweeps at the window's first expansion point
+    config = bench.headline_config(1, 4)
+    xs, _ = ilqr.initial_rollout(ocp, z0s, us)
+    al = ocp_mod.init_al_state(ocp, z0s, us[:, 0], N,
+                               mu0=config.penalty_init)
+    A, Bm = ilqr.linearize(ocp, xs, us)
+    quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize(ocp, al, xs, us)]
+    reg = torch.full((B,), config.reg_init, device=us.device)
+    gains = {mode: ilqr.backward_pass(A, Bm, *quad, reg, mode,
+                                      cuda_chol=True)
+             for mode in ("sequential", "associative")}
+    riccati.read_fallbacks()
+    return records, first[0], gains
+
+
+def hold_cholesky_indefinite(a, rhs, label):
+    """The batched-Cholesky kernel against its plain version on systems
+    that need not be positive definite: the same systems non-finite in
+    both, the rest within CHOL_TOL of the largest entry of each system's
+    solution (a solve's rounding scales with its solution, not with each
+    entry).  Returns the error, the share of non-finite systems and the
+    largest relative error on the finite ones."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import cholesky
+
+    x = cholesky.batched_cholesky_solve(a, rhs)
+    xp = cholesky.cholesky_solve_plain(a, rhs)
+    torch.cuda.synchronize()
+    fin, finp = (t.isfinite().flatten(1).all(1) for t in (x, xp))
+    n_bad = int((~finp).sum())
+    d = torch.abs(x[fin] - xp[fin]).flatten(1).amax(1)
+    scale = 1.0 + torch.abs(xp[fin]).flatten(1).amax(1)
+    err = float(d.max()) if d.numel() else 0.0
+    worst = float((d / scale).max()) if d.numel() else 0.0
+    print(f"{label}: {n_bad} of {a.shape[0]} systems non-finite in the "
+          f"plain version, {int((~fin).sum())} in the kernel; finite "
+          f"systems: max abs err {err:.3e}, max err over (1 + the system's "
+          f"largest |X|) {worst:.3e} (tol {CHOL_TOL})", flush=True)
+    check(bool((fin == finp).all()), f"{label}: kernel and plain version "
+          "disagree on which systems are finite")
+    check(worst <= CHOL_TOL, f"{label}: kernel and plain version differ "
+          f"by {worst} of a system's solution")
+    return err, n_bad / a.shape[0], worst
+
+
+def fused_breakdown(ocp, spec, z0s, us, config):
+    """Host wall time of each piece of one inner iteration of the fused
+    solver (solvers/fused.py's loop body, piece by piece; the second of
+    two runs, outside the profiler), the per-solve and per-AL-round
+    pieces beside it, and, from a third run of the inner iteration's
+    pieces under torch.profiler, its wall, the device's busy share over
+    it and the number of device kernels it ran."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import window as win
+    from aircraft_tpu_torch.ops.autodiff import batched_grad_hessian
+    from aircraft_tpu_torch.solvers import fused, ilqr
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    B, N = us.shape[:2]
+    dev = us.device
+    op = win.make_window_operands(
+        spec, N, gain_clip=config.gain_clip,
+        alphas=win.line_search_alphas(config.line_search_steps), device=dev)
+    A = len(op.alphas)
+    al = ocp_mod.init_al_state(ocp, z0s, us[:, 0], N,
+                               mu0=config.penalty_init)
+    lam, mu, mu_row = (t.contiguous() for t in (al.lam_ineq, al.mu,
+                                                al.mu_row))
+    ws = us.contiguous()
+
+    def timed(times, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return r
+
+    def run(times, xs):
+        timed_ = lambda name, fn: timed(times, name, fn)
+        reg = torch.full((B,), config.reg_init, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        vx, vxx = timed_("terminal_expansion", lambda: [
+            fused._san(t).contiguous() for t in batched_grad_hessian(
+                lambda x: ocp_mod.al_terminal_cost(ocp, al, x), xs[:, -1])])
+        K, kff, _, _, qu_max, fail = timed_("window_backward", lambda: (
+            win.window_backward(op, xs, ws, lam, mu, reg, mu_row, vx, vxx)))
+        xs_new, ws_new, misc = timed_("window_forward", lambda: (
+            win.window_forward(op, xs, ws, K, kff, lam, mu, mu_row)))
+
+        def masks():
+            cost_prev, cost_new = misc[:, A - 1], misc[:, A]
+            improved = (cost_new < cost_prev - 1e-12) & ~fail
+            torch.where(fail | ~improved,
+                        torch.clamp_max(reg * config.reg_escalate,
+                                        config.reg_max),
+                        torch.clamp_min(reg / config.reg_relax,
+                                        config.reg_init))
+            accept = improved & ~done
+            torch.where(accept[:, None, None], xs_new, xs)
+            torch.where(accept[:, None, None], ws_new, ws)
+            converged = (qu_max < config.tol) | (improved & (
+                torch.abs(cost_prev - cost_new)
+                < config.tol * (1.0 + torch.abs(cost_prev))))
+            return done | (converged & ~fail)
+
+        timed_("accept_and_masks", masks)
+
+    times = {}
+    for _ in range(2):
+        xs = timed(times, "initial_rollout (per solve)", lambda: (
+            ilqr.initial_rollout(ocp, z0s, us)[0].contiguous()))
+        timed(times, "update_multipliers (per AL round)",
+              lambda: ocp_mod.update_multipliers(
+                  ocp, al, xs, ws, config.penalty_scale, config.penalty_max,
+                  row_adapt=config.penalty_per_row))
+        run(times, xs)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run({}, xs)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy = device_us * 1e-6 / wall if device_us > 0 else None
+    inner = sum(v for k, v in times.items() if "per " not in k)
+    return times, inner, wall, busy, len(kernels)
+
+
+def sweep_host_s(ocp, us, inp, reps=5):
+    """Host wall time of one backward pass at the fleet's shape on each
+    Quu-solve route (synchronised before and after, the median of reps,
+    the routes in turns), on the Gauss-Newton expansion of inp's point."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    N = us.shape[1]
+    xs = inp["xs"]
+    al = ocp_mod.init_al_state(ocp, xs[:, 0], us[:, 0], N)
+    A, Bm = ilqr.linearize(ocp, xs, us)
+    quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize_gn(ocp, al, xs, us)]
+    walls = {"kernel_route": [], "reference_route": []}
+    for _ in range(reps + 1):
+        for name, cc in (("kernel_route", True), ("reference_route", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ilqr.backward_pass(A, Bm, *quad, inp["reg"], cuda_chol=cc)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return {k: float(np.median(v[1:])) for k, v in walls.items()}
+
+
+SERVE_WINDOWS = 10
+
+
 def serving_loop_paths():
     """The serving loop's four drives, each with the launch counters reset
     just before it and read just after; returns the launches per path and
@@ -931,11 +1313,7 @@ def serving_loop_paths():
 
     from aircraft_tpu_torch import bench
     from aircraft_tpu_torch.config import glider_config
-    from aircraft_tpu_torch.control.course import (
-        COURSE_OCP_KNOBS,
-        solve_full_course,
-    )
-    from aircraft_tpu_torch.control.mhtt import MHTT
+    from aircraft_tpu_torch.control.course import solve_full_course
 
     per_window = 3 * 12
     launches, records = {}, {}
@@ -950,41 +1328,39 @@ def serving_loop_paths():
         "latency mode", 1 + lat["reps"], per_window)
     records["latency"] = lat
 
+    # the serve mode pipelined and synchronous over the same windows
     reset_all_counts()
-    srv = bench.bench_serve("cuda", windows=20)
+    srv = bench.bench_serve("cuda", windows=SERVE_WINDOWS)
     print(json.dumps(srv), flush=True)
     check(srv["telemetry_backend"] == "native",
           f"serve mode telemetry backend {srv['telemetry_backend']}")
-    check(srv["telemetry_dropped"] == 0 and srv["telemetry_records"] == 400,
+    check(srv["telemetry_dropped"] == 0
+          and srv["telemetry_records"] == 20 * SERVE_WINDOWS,
           f"serve mode telemetry: {srv['telemetry_records']} records, "
           f"{srv['telemetry_dropped']} dropped")
     check(srv["pipelined"] and srv["fused_kernels"],
           "serve mode: not pipelined on the kernels")
     check(math.isfinite(srv["mean_violation"]), "serve mode: non-finite")
     # the set-up call, then one solve per window
-    launches["serve"] = check_window_launches("serve mode (pipelined)", 21,
-                                              per_window)
+    launches["serve"] = check_window_launches(
+        "serve mode (pipelined)", SERVE_WINDOWS + 1, per_window)
     records["serve"] = srv
 
     reset_all_counts()
-    sync = bench.bench_serve("cuda", windows=5, pipeline=False)
+    sync = bench.bench_serve("cuda", windows=SERVE_WINDOWS, pipeline=False)
     print(json.dumps(sync), flush=True)
-    check(sync["telemetry_dropped"] == 0 and sync["telemetry_records"] == 100
+    check(sync["telemetry_dropped"] == 0
+          and sync["telemetry_records"] == 20 * SERVE_WINDOWS
           and not sync["pipelined"], f"serve mode, synchronous: {sync}")
     launches["serve_sync"] = check_window_launches(
-        "serve mode (synchronous)", 6, per_window)
+        "serve mode (synchronous)", SERVE_WINDOWS + 1, per_window)
     records["serve_sync"] = sync
+    print(f"serve cadence over {SERVE_WINDOWS} windows each: pipelined p50 "
+          f"{srv['p50_ms']} ms, p99 {srv['p99_ms']} ms; synchronous p50 "
+          f"{sync['p50_ms']} ms, p99 {sync['p99_ms']} ms", flush=True)
 
-    cfg, params, _, track, v_ref, _ = bench.build_problem("cuda")
-    knobs = dict(COURSE_OCP_KNOBS)
-    knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
-                                   "unit_scales": True}
-    mhtt = MHTT(params, cfg, track, num_nodes=bench.N_HORIZON, dt=bench.DT,
-                overlap=bench.OVERLAP, v_ref=v_ref,
-                solver_config=bench.headline_config(), **knobs)
+    mhtt, z0, us0 = headline_mhtt(bench.headline_config())
     check(mhtt.fused, "MHTT on the card did not take the window kernels")
-    z0, trim = bench.fleet_states(params, track, 1, v_ref, s_span=(0.1, 0.1))
-    us0 = trim.control[:7][None].expand(bench.N_HORIZON, 7).contiguous()
     runs = {}
     for pipeline in (True, False):
         reset_all_counts()
@@ -1104,6 +1480,9 @@ def main() -> int:
     phase("window kernels at serving shapes")
     serving = serving_holds(op, config)
 
+    phase("sync audit")
+    sync_audit(ocp, us, inp)
+
     phase("path: fused serving chain")
     reset_all_counts()
     head = bench.run_headline("cuda", batch=256, warmup=1, reps=1)
@@ -1125,6 +1504,21 @@ def main() -> int:
           + (f"{busy:.3f}" if busy is not None else "not measured (the "
              "profiler saw no device time)")
           + f", {n_launch} kernel launches", flush=True)
+
+    phase("fused inner iteration, piece by piece")
+    for label, b in (("B=256", B), ("B=1", 1)):
+        times, inner, wall, busy, n_launch = fused_breakdown(
+            ocp, spec, z0s[:b], us[:b].contiguous(), config)
+        print(f"one fused inner iteration at {label} N={N} (host wall, s): "
+              + json.dumps({k: round(v, 5) for k, v in times.items()})
+              + f"; inner-iteration pieces {inner:.4f} s; profiled pieces "
+              f"wall {wall:.4f} s, device busy share "
+              + (f"{busy:.3f}" if busy is not None else "not measured (the "
+                 "profiler saw no device time)")
+              + f", {n_launch} kernel launches", flush=True)
+    host = sweep_host_s(ocp, us, inp)
+    print(f"one backward pass at B={B} N={N} (host wall, s, median of 5): "
+          + json.dumps(host), flush=True)
 
     phase("path: iLQR chain on the Cholesky kernel")
     reset_all_counts()
@@ -1155,6 +1549,31 @@ def main() -> int:
           f"iLQR chain finite_fraction {ilqr_head['finite_fraction']}")
     launches["batched_cholesky"] = n_chol
 
+    phase("path: exact Hessian window, both sweeps on the Cholesky kernel")
+    exact, (a_first, rhs_first), gains = exact_window(ocp, z0s, us)
+    indef_err, indef_bad, indef_rel = hold_cholesky_indefinite(
+        a_first, rhs_first, f"associative sweep's first Cholesky batch "
+        f"B={a_first.shape[0]} m=7 k=15 (exact expansion)")
+    (Ks, ks_, *_), (Ka, ka, *_) = gains["sequential"], gains["associative"]
+    finite = {m: int(g[0].isfinite().flatten(1).all(1).sum())
+              for m, g in gains.items()}
+    print("first inner iteration of the exact window: sequential against "
+          "associative gains, max |dK| / (1 + max |K|) "
+          f"{rel_err(Ka, Ks):.3e}, max |dk| / (1 + max |k|) "
+          f"{rel_err(ka, ks_):.3e}; max |Qu| sequential "
+          f"{float(gains['sequential'][4].max()):.4g}, associative "
+          f"{float(gains['associative'][4].max()):.4g}; scenarios with "
+          f"finite gains {json.dumps(finite)} of {B} (a finding, not held: "
+          "on this non-convex expansion the two sweeps are different "
+          "computations; they are held at 2e-3 on the LQ batch below)",
+          flush=True)
+    lq = lq_sweeps(B, N, us.device)
+    launches["batched_cholesky_by_path"] = {
+        "ilqr_chain": n_chol,
+        "exact_window_sequential": exact["sequential"]["cholesky_launches"],
+        "exact_window_associative": exact["associative"]["cholesky_launches"],
+        **{f"lq_{k}": v for k, v in lq["launches"].items()}}
+
     phase("path: bench modes")
     reset_all_counts()
     kmode = bench.bench_kernel("cuda", reps=2)   # the plain rollout takes seconds
@@ -1171,6 +1590,10 @@ def main() -> int:
     check(math.isfinite(kmode["max_diff"]) and cmode["max_diff"] < CHOL_TOL,
           "bench modes: a non-finite rollout or a Cholesky difference "
           f"{cmode['max_diff']}")
+    rmode = bench.bench_riccati("cuda", reps=3)
+    print(json.dumps(rmode), flush=True)
+    check(all(r["max_K_diff"] < 2e-3 for r in rmode["horizons"].values()),
+          f"riccati mode: the two sweeps differ: {rmode['horizons']}")
 
     phase("path: serving loop")
     serve_launches, _ = serving_loop_paths()
@@ -1217,6 +1640,9 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], hold[f"{half}_err"])
         row["launches_by_path"] = {"fused_chain": row["launches"], **{
             path: counts[row["name"]] for path, counts in serve_launches.items()}}
+    kernels[2]["launches_by_path"] = launches["batched_cholesky_by_path"]
+    kernels[2]["max_err_indefinite"] = indef_rel
+    kernels[2]["nonfinite_share_indefinite"] = indef_bad
     print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
           "lost by the pre-roll, the first launches of a trace; the timed "
           "calls kept every record)", flush=True)

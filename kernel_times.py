@@ -12,6 +12,13 @@ Cholesky kernel in a CUDA graph, `wrapper_ms` CUDA events around wrapper
 calls, `library_ms` the library factor-and-solve's device time.  Run in
 two checkouts in one call, on one card, it compares two versions of the
 kernels.  Without a card it exits non-zero and prints no times.
+
+    python3 kernel_times.py --sweep
+
+times only one Riccati backward pass at the fleet's shape (B=256, N=50)
+on each Quu-solve route, host wall clock around a synchronised call, the
+median of 5 (chip_smoke.sweep_host_s).  Copied beside another checkout's
+package with chip_smoke.py and run there, it times that version's sweep.
 """
 
 from __future__ import annotations
@@ -22,13 +29,25 @@ import sys
 import chip_smoke
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--sweep", action="store_true",
+                   help="only the host wall of one Riccati backward pass "
+                   "at B=256, N=50 on each Quu-solve route")
+    a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     ocp, _, _, z0s, us, inp = chip_smoke.fleet_problem()
+    if a.sweep:
+        print(chip_smoke.smi_line())
+        print(json.dumps({"backward_pass_host_s": chip_smoke.sweep_host_s(
+            ocp, us, inp)}))
+        return 0
     chol, chol_all, chol_cm = chip_smoke.cholesky_phase(ocp, z0s, us, inp)
     roll = chip_smoke.rollout_phase()
     keys = ("ms", "graph_ms", "wrapper_ms", "library_ms")

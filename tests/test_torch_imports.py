@@ -94,6 +94,7 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: bench.build_problem(),
                  lambda: bench.bench_kernel(),
                  lambda: bench.bench_chol(),
+                 lambda: bench.bench_riccati(),
                  lambda: bench.bench_latency(),
                  lambda: bench.bench_serve(),
                  lambda: MHTT(params, cfg, track),
