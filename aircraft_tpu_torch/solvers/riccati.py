@@ -152,7 +152,6 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
             torch.stack(qu).amax(0), fail)
 
 
-
 # ---------------------------------------------------------------------------
 # the associative (parallel-in-time) sweep
 # ---------------------------------------------------------------------------
@@ -193,7 +192,7 @@ def cv_terminal(vx, vxx):
     return z, torch.zeros_like(vx), z, -vx, vxx
 
 
-def cv_identity(n, dtype=torch.float32, device="cpu", batch=()):
+def cv_identity(n, dtype, device, batch=()):
     """Identity of ``cv_combine``: A = I, everything else zero, with the
     leading axes ``batch``."""
     eye = torch.eye(n, dtype=dtype, device=device).expand(batch + (n, n))

@@ -1042,23 +1042,21 @@ def sync_audit(ocp, us, inp):
 
 def lq_sweeps(B, N, device="cuda", n=14, m=7):
     """Both sweeps on the kernel route on a well-posed LQ batch at the
-    fleet's shape (the bench riccati mode's recipe, per scenario: A ≈ I,
-    PD costs, small cross terms): their gains within 2e-3 (1 + |ref|),
-    and the Cholesky launches of each, counted just around it."""
+    fleet's shape (the bench riccati mode's stage data, one horizon per
+    scenario): their gains within 2e-3 (1 + |ref|), and the Cholesky
+    launches of each, counted just around it."""
+    import numpy as np
     import torch
 
+    from aircraft_tpu_torch import bench
     from aircraft_tpu_torch.kernels import cholesky
     from aircraft_tpu_torch.solvers import riccati
 
-    gen = torch.Generator(device=device).manual_seed(7)
-    r = lambda *s: torch.randn(s, device=device, generator=gen)
-    eye = lambda k: torch.eye(k, device=device)
-    W, U = r(B, N, n, n), r(B, N, m, m)
-    args = (eye(n) + 0.01 * r(B, N, n, n), 0.01 * r(B, N, n, m),
-            r(B, N, n), r(B, N, m), W @ W.transpose(-1, -2) / n + eye(n),
-            U @ U.transpose(-1, -2) / m + eye(m), 0.01 * r(B, N, m, n),
-            r(B, n), eye(n).expand(B, n, n).contiguous(),
-            torch.full((B,), 1e-6, device=device))
+    rng = np.random.default_rng(7)
+    per = [bench.riccati_problem(N, rng, n=n, m=m) for _ in range(B)]
+    args = tuple(torch.as_tensor(np.concatenate(t), device=device)
+                 for t in zip(*per)) + (
+        torch.full((B,), 1e-6, device=device),)
     out, launches = {}, {}
     riccati.reset_counts()
     for mode in ("sequential", "associative"):

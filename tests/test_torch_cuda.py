@@ -150,7 +150,7 @@ def test_cuda_chol_sweep_launches_the_kernel_on_every_knot():
     out = riccati.backward_sequential(*args, cuda_chol=True)
     ref = riccati.backward_sequential(*args)
     assert cholesky.batched_cholesky_solve.launches == N
-    assert riccati.chol_fallbacks == 0
+    assert riccati.read_fallbacks() == 0
     for o, p in zip(out[:2], ref[:2]):
         assert float((o - p).abs().max()) <= 2e-3 * (1 + float(p.abs().max()))
 

@@ -173,10 +173,13 @@ def test_quadraticize_exact(quad_exact):
                                    err_msg=name)
 
 
-def test_one_exact_inner_iteration_gains(linearized, quad_exact):
+@pytest.mark.parametrize("sweep", ["sequential", "associative"])
+def test_one_exact_inner_iteration_gains(linearized, quad_exact, sweep):
     """One inner iteration with the exact expansion: the port's gains
-    against the reference's sweep on the reference's expansion, within
-    1e-2 relative as the Gauss-Newton iteration is held."""
+    against the reference's sweep of the same kind on the reference's
+    expansion, within 1e-2 relative as the Gauss-Newton iteration is
+    held.  (The two sweeps need not agree with each other on an
+    indefinite expansion; each is held to its reference.)"""
     san = lambda t, lim: jnp.clip(
         jnp.nan_to_num(jnp.asarray(t), nan=0.0, posinf=0.0, neginf=0.0),
         -lim, lim)
@@ -184,12 +187,12 @@ def test_one_exact_inner_iteration_gains(linearized, quad_exact):
     ref, out = quad_exact
     with jax.default_matmul_precision("highest"):
         K_ref, k_ref, *_, fail_ref = jax.jit(jax.vmap(
-            jriccati.backward_sequential))(
+            getattr(jriccati, f"backward_{sweep}")))(
             san(A_ref, 1e6), san(B_ref, 1e6), *(san(t, 1e8) for t in ref),
             jnp.full((B,), 1e-6, jnp.float32))
     K, k, *_, fail = ilqr.backward_pass(A, Bm, *(ilqr._san(t, 1e8)
                                                  for t in out),
-                                        torch.full((B,), 1e-6))
+                                        torch.full((B,), 1e-6), sweep)
     np.testing.assert_array_equal(fail.numpy(), np.asarray(fail_ref))
     assert _rel(K.numpy(), K_ref) < 1e-2
     assert _rel(k.numpy(), k_ref) < 1e-2

@@ -176,7 +176,7 @@ def test_backward_associative_matches_reference(N):
 def test_cv_identity_is_the_identity_of_the_combine():
     args = [torch.as_tensor(a) for a in lq_batch(2, 5, 6, 3, 5)]
     elems, _ = riccati.cv_elements(*args[:7], torch.as_tensor(_reg(2)))
-    ident = riccati.cv_identity(6, batch=(2, 5))
+    ident = riccati.cv_identity(6, torch.float32, "cpu", batch=(2, 5))
     for left, right in ((ident, elems), (elems, ident)):
         for c, e in zip(riccati.cv_combine(left, right), elems):
             np.testing.assert_allclose(c.numpy(), e.numpy(), rtol=1e-6,
