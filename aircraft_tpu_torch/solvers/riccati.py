@@ -36,6 +36,7 @@ V_LIM = 1e14    # value-function clamp: far above AL curvature, far below f32 ov
 
 chol_fallbacks = 0   # kernel-route runs of systems that took the reference route
 _pending = []        # device flags of kernel-route runs not yet read
+_FOLD_AT = 1024      # pending entries summed into one on the device
 
 
 def reset_counts() -> None:
@@ -100,6 +101,8 @@ def chol_solve_kernel(M, rhs, reg, groups: int = 1):
     runs = X.reshape((groups, -1) + X.shape[1:])
     fell_back = ~torch.isfinite(runs).flatten(1).all(dim=1)     # (groups,)
     _pending.append(fell_back)
+    if len(_pending) >= _FOLD_AT:     # callers that never read stay bounded
+        _pending[:] = [torch.cat(_pending).sum().reshape(1)]
     X_ref, bad_ref = chol_solve_reference(M, rhs, reg)
     X = torch.where(fell_back[:, None, None, None],
                     X_ref.reshape(runs.shape), runs).reshape(X.shape)

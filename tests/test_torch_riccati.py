@@ -230,3 +230,18 @@ def test_bench_riccati_mode_prints_the_reference_fields(capsys, cuda_chol):
         assert set(row) == {"seq_ms", "assoc_ms", "speedup", "max_K_diff"}
         assert row["max_K_diff"] < ATOL
     assert line["value"] == line["horizons"]["N17"]["speedup"]
+
+
+def test_unread_fallback_counts_stay_bounded_and_exact(monkeypatch):
+    """Kernel-route calls whose counts nobody reads keep a bounded list of
+    device flags, and the one read still counts every fallback."""
+    monkeypatch.setattr(riccati, "batched_cholesky_solve",
+                        lambda a, rhs: torch.full_like(rhs, float("nan")))
+    M = torch.eye(2).repeat(3, 1, 1)
+    rhs, reg = torch.ones(3, 2, 1), torch.full((3,), 1e-6)
+    riccati.reset_counts()
+    for _ in range(2 * riccati._FOLD_AT + 5):
+        riccati.chol_solve_kernel(M, rhs, reg)
+    assert len(riccati._pending) <= riccati._FOLD_AT
+    assert riccati.read_fallbacks() == 2 * riccati._FOLD_AT + 5
+    riccati.reset_counts()
