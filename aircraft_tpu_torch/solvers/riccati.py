@@ -15,9 +15,15 @@ semantics (``aircraft_tpu/solvers/riccati.py``):
   fallback).  The reference decides that on the device (``lax.cond``);
   so does the port, with no host read: both routes are computed and a
   0-dim device flag selects one (``torch.where``).  The fallbacks are
-  counted on the device and folded into ``chol_fallbacks`` by
+  added into a device counter and folded into ``chol_fallbacks`` by
   ``read_fallbacks``, one host read, which ``ilqr.solve_impl`` makes once
   per solve.
+
+On the card the kernel route's sequential sweep is a CUDA graph, captured
+at the first sweep of each input layout and replayed after it: the same
+arithmetic without the host's cost of ~35 launches per knot.  The graph
+adds the Cholesky kernel's launches it holds to the kernel's counter at
+every replay, and the fallbacks into the same device counter.
 
 The associative sweep (``backward_associative``) reduces the horizon in
 log depth: each knot is a conditional-value element, the elements combine
@@ -28,31 +34,51 @@ systems in one call, on the kernel route one launch per sweep.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from aircraft_tpu_torch.kernels import cholesky
 from aircraft_tpu_torch.kernels.cholesky import MAX_M, batched_cholesky_solve
 
 V_LIM = 1e14    # value-function clamp: far above AL curvature, far below f32 overflow
 
 chol_fallbacks = 0   # kernel-route runs of systems that took the reference route
-_pending = []        # device flags of kernel-route runs not yet read
-_FOLD_AT = 1024      # pending entries summed into one on the device
+_counters = {}       # device -> 0-dim int64: fallbacks counted there, unread
+_unread = False      # whether a counter may hold fallbacks not yet read
 
 
 def reset_counts() -> None:
-    global chol_fallbacks
+    global chol_fallbacks, _unread
     chol_fallbacks = 0
-    _pending.clear()
+    for c in _counters.values():
+        c.zero_()
+    _unread = False
 
 
 def read_fallbacks() -> int:
     """Fold the device-side fallback counts into ``chol_fallbacks`` (one
-    host read, none when there is nothing pending); returns the total."""
-    global chol_fallbacks
-    if _pending:
-        chol_fallbacks += int(torch.cat(_pending).sum())   # the host read
-        _pending.clear()
+    host read, none when nothing was counted since the last); returns the
+    total."""
+    global chol_fallbacks, _unread
+    if _unread:
+        chol_fallbacks += int(sum(c.cpu() for c in _counters.values()))
+        for c in _counters.values():
+            c.zero_()
+        _unread = False
     return chol_fallbacks
+
+
+def _count_fallbacks(fell_back: torch.Tensor) -> None:
+    """Add the runs that fell back into the device's counter (created
+    before any graph is captured, so a graph adds into the same one)."""
+    global _unread
+    c = _counters.get(fell_back.device)
+    if c is None:
+        c = _counters[fell_back.device] = torch.zeros(
+            (), dtype=torch.int64, device=fell_back.device)
+    c.add_(fell_back.sum())
+    _unread = True
 
 
 def _sym(M):
@@ -81,7 +107,16 @@ def chol_solve_reference(M, rhs, reg):
     L = torch.where(bad0[:, None, None], L1, L0)
     bad = torch.where(bad0, bad1, bad0)
     L = torch.where(bad[:, None, None], eye, L)
-    return torch.cholesky_solve(rhs, L), bad
+    return _cho_solve(L, rhs), bad
+
+
+def _cho_solve(L, rhs):
+    """X with L Lᵀ X = rhs, by two triangular solves as the reference's
+    ``cho_solve`` does.  On the card they are cuBLAS calls, which a CUDA
+    graph captures; the batched ``torch.cholesky_solve`` goes to MAGMA
+    there, which refuses capture."""
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
 
 
 def chol_solve_kernel(M, rhs, reg, groups: int = 1):
@@ -100,9 +135,7 @@ def chol_solve_kernel(M, rhs, reg, groups: int = 1):
     X = batched_cholesky_solve(_sym(M) + reg[:, None, None] * eye, rhs)
     runs = X.reshape((groups, -1) + X.shape[1:])
     fell_back = ~torch.isfinite(runs).flatten(1).all(dim=1)     # (groups,)
-    _pending.append(fell_back)
-    if len(_pending) >= _FOLD_AT:     # callers that never read stay bounded
-        _pending[:] = [torch.cat(_pending).sum().reshape(1)]
+    _count_fallbacks(fell_back)
     X_ref, bad_ref = chol_solve_reference(M, rhs, reg)
     X = torch.where(fell_back[:, None, None, None],
                     X_ref.reshape(runs.shape), runs).reshape(X.shape)
@@ -115,6 +148,16 @@ def _clamp(t):
                                         neginf=-V_LIM), -V_LIM, V_LIM)
 
 
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple      # the graph's static input buffers
+    outputs: tuple     # its output buffers
+    launches: int      # Cholesky-kernel launches per replay
+
+
+_graphs = {}   # the inputs' shapes and strides, dtype, device -> _Captured
+
+
 def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
                         cuda_chol: bool = False):
     """O(N) Riccati recursion over a batch of horizons.
@@ -122,8 +165,51 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
     A (Bz, N, n, n) and B (Bz, N, n, m) are the step Jacobians; lx, lu,
     lxx, luu, lux the stage expansion; vx (Bz, n), vxx (Bz, n, n) the
     terminal one; reg (Bz,).  ``cuda_chol`` sends each knot's solve down
-    the kernel route.  Returns K (Bz, N, m, n), k (Bz, N, m), Σ dv1, Σ dv2,
-    max |Qu| over the horizon and the fail flag, each (Bz,)."""
+    the kernel route; on the card that sweep replays a CUDA graph of
+    itself (captured at the first sweep of its input shapes and strides,
+    which runs eagerly): the inputs are copied into the graph's buffers
+    and the outputs cloned out.  Returns K (Bz, N, m, n), k (Bz, N, m), Σ dv1,
+    Σ dv2, max |Qu| over the horizon and the fail flag, each (Bz,)."""
+    args = (A, B, lx, lu, lxx, luu, lux, vx, vxx, reg)
+    if not (cuda_chol and A.is_cuda):
+        return _sequential(*args, cuda_chol=cuda_chol)
+    global _unread
+    # the layout is part of the key: a library call may take another
+    # algorithm, and round otherwise, on other strides
+    key = tuple((a.shape, a.stride()) for a in args) + (A.dtype, A.device)
+    cap = _graphs.get(key)
+    if cap is None:
+        out = _sequential(*args, cuda_chol=True)   # also warms every library up
+        _graphs[key] = _capture(args)
+        return out
+    for buf, a in zip(cap.inputs, args):
+        buf.copy_(a)
+    cap.graph.replay()
+    cholesky.batched_cholesky_solve.launches += cap.launches
+    _unread = True
+    return tuple(t.clone() for t in cap.outputs)
+
+
+def _capture(args) -> _Captured:
+    """A CUDA graph of the kernel-route sweep on copies of ``args`` laid
+    out as they are.  The capture launches nothing, so the Cholesky
+    wrapper's count taken during it is the count each replay adds, and is
+    taken back out."""
+    inputs = tuple(torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                       device=a.device).copy_(a)
+                   for a in args)
+    before = cholesky.batched_cholesky_solve.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        outputs = _sequential(*inputs, cuda_chol=True)
+    launches = cholesky.batched_cholesky_solve.launches - before
+    cholesky.batched_cholesky_solve.launches = before
+    return _Captured(graph, inputs, outputs, launches)
+
+
+def _sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
+                cuda_chol: bool):
+    """``backward_sequential``'s recursion, eagerly."""
     solve = chol_solve_kernel if cuda_chol else chol_solve_reference
     N = A.shape[1]
     Vx, Vxx = vx, vxx

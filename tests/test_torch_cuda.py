@@ -155,6 +155,48 @@ def test_cuda_chol_sweep_launches_the_kernel_on_every_knot():
         assert float((o - p).abs().max()) <= 2e-3 * (1 + float(p.abs().max()))
 
 
+@pytest.mark.gpu
+def test_cuda_chol_sweep_graph_replays_the_eager_sweep_bit_for_bit():
+    """The kernel-route sequential sweep's CUDA graph: on a batch where
+    some knots fall back (indefinite luu), every replay gives the eager
+    sweep's K, k, dv1, dv2, max |Qu| and flags bit for bit, counts the
+    eager sweep's fallbacks, and adds N Cholesky launches; a strided
+    input layout gets a graph of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    Bz, N, n, m = 37, 9, 14, 7
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r = lambda *s: torch.randn(s, device="cuda", generator=gen)
+    eye = lambda d: torch.eye(d, device="cuda")
+    W = r(Bz, N, n, n)
+    args = [eye(n) + 0.3 * r(Bz, N, n, n), 0.3 * r(Bz, N, n, m),
+            r(Bz, N, n), r(Bz, N, m), W @ W.transpose(-1, -2) / n + eye(n),
+            r(Bz, N, m, m), 0.1 * r(Bz, N, m, n), r(Bz, n),
+            eye(n).expand(Bz, n, n).contiguous(),
+            torch.full((Bz,), 1e-6, device="cuda")]
+    args[5] = args[5] + args[5].transpose(-1, -2)      # indefinite luu
+    for layout in ("contiguous", "strided"):
+        if layout == "strided":
+            args[4] = args[4].transpose(-1, -2)
+        riccati.reset_counts()
+        cholesky.reset_launch_counts()
+        eager = riccati._sequential(*args, cuda_chol=True)
+        falls = riccati.read_fallbacks()
+        assert falls > 0, "the batch never fell back"
+        riccati.backward_sequential(*args, cuda_chol=True)  # eager + capture
+        for _ in range(2):
+            riccati.reset_counts()
+            cholesky.reset_launch_counts()
+            out = riccati.backward_sequential(*args, cuda_chol=True)
+            assert cholesky.batched_cholesky_solve.launches == N
+            assert riccati.read_fallbacks() == falls
+            for o, e in zip(out, eager):
+                assert torch.equal(o.nan_to_num(), e.nan_to_num()), layout
+
+
 def _smoke(cwd: Path, env_extra: dict):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(env_extra)

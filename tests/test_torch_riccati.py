@@ -233,15 +233,20 @@ def test_bench_riccati_mode_prints_the_reference_fields(capsys, cuda_chol):
 
 
 def test_unread_fallback_counts_stay_bounded_and_exact(monkeypatch):
-    """Kernel-route calls whose counts nobody reads keep a bounded list of
-    device flags, and the one read still counts every fallback."""
+    """Kernel-route calls whose counts nobody reads add into one 0-dim
+    device counter per device, and the one read still counts every
+    fallback."""
     monkeypatch.setattr(riccati, "batched_cholesky_solve",
                         lambda a, rhs: torch.full_like(rhs, float("nan")))
     M = torch.eye(2).repeat(3, 1, 1)
     rhs, reg = torch.ones(3, 2, 1), torch.full((3,), 1e-6)
     riccati.reset_counts()
-    for _ in range(2 * riccati._FOLD_AT + 5):
+    calls = 2053
+    for _ in range(calls):
         riccati.chol_solve_kernel(M, rhs, reg)
-    assert len(riccati._pending) <= riccati._FOLD_AT
-    assert riccati.read_fallbacks() == 2 * riccati._FOLD_AT + 5
+    counter = riccati._counters[torch.device("cpu")]
+    assert counter.ndim == 0 and len(riccati._counters) == 1
+    assert riccati.read_fallbacks() == calls
+    assert riccati.read_fallbacks() == calls     # nothing new: no second read
     riccati.reset_counts()
+
