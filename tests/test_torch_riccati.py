@@ -13,6 +13,9 @@
   granularity (the whole batch at a knot of the sequential sweep, one
   scenario in the associative sweep's gain recovery); m = 17 takes the
   reference route.
+* Which sweep the exact-Hessian solver may use on this plant: both sweeps
+  in float32 and float64 on the headline window's exact expansion
+  (``test_exact_hessian_takes_the_sequential_sweep``).
 
 Held at 2e-3 as tests/test_riccati.py holds the two reference sweeps.
 """
@@ -250,3 +253,97 @@ def test_unread_fallback_counts_stay_bounded_and_exact(monkeypatch):
     assert riccati.read_fallbacks() == calls     # nothing new: no second read
     riccati.reset_counts()
 
+
+# The two worst scenarios of the headline fleet window's first exact
+# expansion (bench.build_problem and fleet_states, B=256, N=50, the CPU):
+# 65 is the kernel route's worst, 124 the float64 sweeps' widest split.
+EXACT_WORST = (65, 124)
+# bench.plant_best_glide's (v_ref, glide_ld) for the MLP plant at seed 0,
+# taken as given: finding it costs three trims (~11 s on a CPU)
+FLEET_GLIDE = (32.0, 8.968676163314832)
+GAIN_TOL = 1e-2      # the repo's tolerance on Riccati gains, relative
+
+
+def _rel(a, b):
+    """Per scenario max |a − b| / (1 + max |b|), non-finite as inf."""
+    d = (a.double() - b.double()).abs().flatten(1).amax(1)
+    r = d / (1 + b.double().abs().flatten(1).amax(1))
+    return r.nan_to_num(nan=float("inf"))
+
+
+def test_exact_hessian_takes_the_sequential_sweep(monkeypatch):
+    """The exact-Hessian solver uses the sequential sweep (the default of
+    ``SolverConfig``) on the reference route.  Measured over all 256
+    scenarios of the headline window's first exact expansion, float32
+    against float64 on the same float32 expansion:
+
+    * on the reference route each sweep reproduces its own float64 run
+      (max |dK| / (1 + max |K|) ≤ 2.0e-3 sequential, ≤ 5.6e-3
+      associative): neither sweep's split from the other is its own
+      rounding;
+    * the two float64 sweeps differ in every scenario (median 0.52, up to
+      32): Quu is indefinite at 5391 of 12800 knots, and the sequential
+      sweep shifts each indefinite Quu (Gershgorin) before it forms V and
+      clamps V, as the reference's default solver does, while the
+      associative one combines the unshifted value functions.  They are
+      two different computations there and agree only on a
+      positive-definite expansion (the LQ batch);
+    * on the kernel route the batched-Cholesky kernel's clamped pivots
+      keep some indefinite systems finite, and the fallback fires only on
+      a non-finite result: gains of 1e31–1e32 come through (associative
+      in 21 of 256 scenarios; sequential at B=1 in 3 of 10 tried, at
+      B=256 a non-finite neighbour trips the whole batch's fallback).
+      The reference's kernel and fallback have the same rule.
+
+    Held here on the two worst scenarios at B=2, N=50."""
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    assert (SolverConfig().hessian, SolverConfig().riccati) == (
+        "exact", "sequential")
+    _, params, ocp, track, v_ref, _ = bench.build_problem(
+        "cpu", glide=FLEET_GLIDE)
+    z0s, trim = bench.fleet_states(params, track, 256, v_ref)
+    z0s = z0s[list(EXACT_WORST)]
+    config = bench.headline_config(1, 4)
+    N = bench.N_HORIZON
+    us = ocp.control_unsquash(trim.control[:7]).reshape(1, 1, 7).expand(
+        len(EXACT_WORST), N, 7).contiguous()
+    xs, _ = ilqr.initial_rollout(ocp, z0s, us)
+    al = ocp_mod.init_al_state(ocp, z0s, us[:, 0], N,
+                               mu0=config.penalty_init)
+    A, Bm = ilqr.linearize(ocp, xs, us)
+    quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize(ocp, al, xs, us)]
+    reg = torch.full((len(EXACT_WORST),), config.reg_init)
+    a32 = (A, Bm, *quad, reg)
+    a64 = tuple(t.double() for t in a32)
+
+    min_eig = []
+    real = riccati.chol_solve_reference
+
+    def recording(M, rhs, reg):
+        min_eig.append(torch.linalg.eigvalsh(riccati._sym(M)).amin(-1))
+        return real(M, rhs, reg)
+
+    K = {}
+    for mode in ("sequential", "associative"):
+        K[mode, "ref32"] = ilqr.backward_pass(*a32, mode)[0]
+        if mode == "sequential":
+            monkeypatch.setattr(riccati, "chol_solve_reference", recording)
+        K[mode, "ref64"] = ilqr.backward_pass(*a64, mode)[0]
+        monkeypatch.setattr(riccati, "chol_solve_reference", real)
+        K[mode, "kernel32"] = ilqr.backward_pass(*a32, mode,
+                                                 cuda_chol=True)[0]
+    riccati.reset_counts()
+    indefinite = (torch.stack(min_eig, dim=1) < 0).sum(1)
+    assert (indefinite > 0).all(), indefinite
+    for mode in ("sequential", "associative"):
+        own = _rel(K[mode, "ref32"], K[mode, "ref64"])
+        assert (own <= GAIN_TOL).all(), (mode, own)
+        # the shared failure rule: finite, and nothing like float64
+        assert torch.isfinite(K[mode, "kernel32"]).all()
+        assert _rel(K[mode, "kernel32"], K[mode, "ref64"])[0] > 1.0, mode
+    split = _rel(K["associative", "ref64"], K["sequential", "ref64"])
+    assert (split > 0.1).all(), split
