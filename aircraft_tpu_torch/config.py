@@ -157,6 +157,12 @@ class WaypointsConfig:
         """Initial position + waypoints, shape (n+1, 3)."""
         return np.vstack([self.initial_position, self.array()])
 
+    def cumulative_distances(self) -> np.ndarray:
+        """Path length from the initial position to each point of
+        ``all_points``, shape (n+1,)."""
+        seg = np.linalg.norm(np.diff(self.all_points(), axis=0), axis=1)
+        return np.concatenate([[0.0], np.cumsum(seg)])
+
 
 @dataclass(frozen=True)
 class TrajectoryConfig:

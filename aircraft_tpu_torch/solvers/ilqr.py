@@ -378,6 +378,25 @@ def solve_impl(ocp: OCPFunctions, x0s: torch.Tensor, us_init: torch.Tensor,
                         grad_norm=grad_norm, al=al)
 
 
+def solve(ocp: OCPFunctions, x0: torch.Tensor, us_init: torch.Tensor,
+          config: SolverConfig = SolverConfig(),
+          al_init: Optional[ALState] = None,
+          xs_init: Optional[torch.Tensor] = None, *,
+          cuda_chol: bool = False) -> ILQRSolution:
+    """One problem: x0 (n,), us_init (N, m), optional unbatched
+    multipliers ``al_init`` and trajectory seed ``xs_init`` (N+1, n).
+    ``solve_impl`` on a batch of one; the solution comes back unbatched
+    (xs (N+1, n), us (N, m), 0-dim cost, violation, ...)."""
+    one = lambda t: None if t is None else t[None]
+    al = (None if al_init is None else
+          ALState(*(getattr(al_init, f)[None] for f in ocp_mod._AL_FIELDS)))
+    sol = solve_impl(ocp, x0[None], us_init[None], config, al,
+                     one(xs_init), cuda_chol=cuda_chol)
+    return ILQRSolution(*(t[0] for t in sol[:-1]),
+                        al=ALState(*(getattr(sol.al, f)[0]
+                                     for f in ocp_mod._AL_FIELDS)))
+
+
 def solve_batch(ocp: OCPFunctions, x0s: torch.Tensor, us_inits: torch.Tensor,
                 config: SolverConfig = SolverConfig(),
                 al_inits: Optional[ALState] = None,

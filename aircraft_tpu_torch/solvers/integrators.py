@@ -1,8 +1,9 @@
 """Fixed-step RK4 integration of the 6-DoF plant.
 
 ``normalize="step"`` renormalises the quaternion after every (sub)step;
-``"none"`` leaves drift alone.  The exponential-map and implicit modes of
-the reference are not ported yet.
+``"none"`` leaves drift alone.  The reference's exponential-map normalise
+mode and its implicit-Euler integration are not ported yet: asking for
+either raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,10 +49,26 @@ def step(params, x: torch.Tensor, u: torch.Tensor, dt, *, substeps: int = 1,
     return x
 
 
-def make_step_fn(params, *, substeps: int = 1,
-                 normalize: str = "none") -> Callable:
-    """Bind integrator options; returns ``step(x, u, dt) -> x_next``."""
+INTEGRATIONS = ("explicit",)
+
+
+def make_step_fn(params, *, substeps: int = 1, normalize: str = "none",
+                 derivative_fn: Callable | None = None,
+                 integration: str = "explicit") -> Callable:
+    """Bind integrator options; returns ``step(x, u, dt) -> x_next``.
+    ``derivative_fn(x, u)`` replaces the plant's state derivative (a
+    wind field, for one); ``integration='explicit'`` is RK4."""
+    if integration not in INTEGRATIONS:
+        raise NotImplementedError(
+            f"integration={integration!r} is not ported (implicit Euler "
+            "waits for the plant-breadth work)")
+    if normalize not in NORMALIZE_MODES:
+        raise NotImplementedError(
+            f"normalize={normalize!r} is not ported (the exponential map "
+            "waits for the plant-breadth work)")
+
     def fn(x, u, dt):
-        return step(params, x, u, dt, substeps=substeps, normalize=normalize)
+        return step(params, x, u, dt, substeps=substeps, normalize=normalize,
+                    derivative_fn=derivative_fn)
 
     return fn

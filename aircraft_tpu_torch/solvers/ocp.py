@@ -221,6 +221,20 @@ def true_cost(ocp: OCPFunctions, xs, us):
             + ocp.terminal_cost(xs[:, -1]))
 
 
+def rollout_defect(ocp: OCPFunctions, xs, us):
+    """Max dynamics defect ‖x_{k+1} − F(x_k, u_k)‖∞ of each trajectory
+    xs (B, N+1, n), us (B, N, m), (B,): whether (xs, us) is a true
+    rollout.  A solve seeded through ``xs_init`` that never accepted a
+    rollout hands its seed back, so callers gate on this.  The knots go
+    to ``ocp.step`` as B·N rows, scenario-major."""
+    Bz, N, m = us.shape
+    n = xs.shape[-1]
+    ks = torch.arange(N, device=xs.device).repeat(Bz)
+    nxt = ocp.step(xs[:, :-1].reshape(-1, n), us.reshape(-1, m), ks)
+    return torch.amax(torch.abs(nxt.reshape(Bz, N, n) - xs[:, 1:]),
+                      dim=(1, 2))
+
+
 def _max0(t, dims):
     """max(t, 0) reduced over ``dims`` (0 for an empty reduction)."""
     if t.numel() == 0:
