@@ -1,4 +1,6 @@
-"""Flight-envelope inequality rows g(x, u, k) <= 0."""
+"""The glider's optimal-control problem: flight-envelope inequality rows
+g(x, u, k) <= 0, the point-to-point losses, and the whole-trajectory OCP
+(``build_aircraft_ocp``) with the reference's quaternion options."""
 
 from __future__ import annotations
 
@@ -7,9 +9,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from aircraft_tpu_torch.config import RHO, ControlEnvelope, StateEnvelope
+from aircraft_tpu_torch.config import (RHO, ControlEnvelope, StateEnvelope,
+                                       TrajectoryConfig)
+from aircraft_tpu_torch.device import resolve_device
 from aircraft_tpu_torch.dynamics import aircraft as ac
 from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+from aircraft_tpu_torch.solvers import integrators
+from aircraft_tpu_torch.solvers.ocp import OCPFunctions
 
 REFERENCE_ENVELOPE = {
     # the reference OCP's hard-coded envelope (airspeed in [20, 100] m/s,
@@ -102,3 +108,93 @@ def envelope_registry(n_controls: int = 7, *,
     reg.register("alpha_lower", 1)
     reg.register("altitude_floor", 1)    # z < 0 (NED)
     return reg
+
+
+def goal_cost(goal, *, w_goal: float = 1.0, w_control: float = 0.01,
+              w_rate: float = 0.0, device="cuda") -> tuple[Callable, Callable]:
+    """Point-to-point losses in the style of the flagship controller:
+    (stage, terminal), the control effort on the surfaces and the
+    terminal goal distance, batch-leading.  ``goal`` (3,) is placed on
+    ``device``; ``w_rate`` is accepted and unused, as in the reference."""
+    goal = torch.as_tensor(goal, dtype=torch.float32,
+                           device=resolve_device(device))
+
+    def stage(x, u, k):
+        return w_control * torch.sum((u[..., :3] / 10.0) ** 2, dim=-1)
+
+    def terminal(x):
+        return w_goal * torch.sum((x[..., :3] - goal) ** 2, dim=-1)
+
+    return stage, terminal
+
+
+QUATERNION_NORMALIZE = {
+    "integration": "step",
+    "expmap": "expmap",
+    "constraint": "none",
+    "baumgarte": "none",
+    "": "none",
+}
+
+
+def build_aircraft_ocp(params: AircraftParams, config: TrajectoryConfig, *,
+                       dt: float, stage_cost: Callable,
+                       terminal_cost: Callable, substeps: int = 1,
+                       quaternion: str = "integration",
+                       integration: str = "explicit", wind=None,
+                       extra_ineq: Optional[Callable] = None,
+                       terminal_ineq: Optional[Callable] = None,
+                       terminal_eq: Optional[Callable] = None
+                       ) -> OCPFunctions:
+    """The glider OCP: RK4 steps of ``dt`` (``substeps`` each) under the
+    reference envelope, with the caller's costs.
+
+    ``quaternion`` follows the reference's option axis:
+      'integration'  renormalise inside the integrator (the default)
+      'constraint'   leave the norm to the equality |q|² − 1 = 0
+      'baumgarte'    the Baumgarte-stabilised norm equality
+                     2αφ̇ + β²φ = 0, φ = |q|² − 1, α = β = 2
+      ''             nothing (drift allowed)
+    'expmap' and ``integration='implicit'`` are not ported and raise
+    NotImplementedError.  ``wind`` (3,) enters the plant's derivative;
+    ``extra_ineq`` rows follow the envelope's."""
+    if quaternion not in QUATERNION_NORMALIZE:
+        raise ValueError(f"quaternion={quaternion!r}: expected one of "
+                         f"{sorted(QUATERNION_NORMALIZE)}")
+    deriv = ((lambda x, u: ac.state_derivative(params, x, u, wind))
+             if wind is not None else None)
+    step = integrators.make_step_fn(
+        params, substeps=substeps, normalize=QUATERNION_NORMALIZE[quaternion],
+        derivative_fn=deriv, integration=integration)
+    env_ineq = envelope_ineq(params, config.state, config.control,
+                             **REFERENCE_ENVELOPE)
+
+    def ineq(x, u, k):
+        g = env_ineq(x, u, k)
+        if extra_ineq is not None:
+            g = torch.cat([g, extra_ineq(x, u, k)], dim=-1)
+        return g
+
+    if quaternion == "constraint":
+        def eq(x, u, k):
+            return torch.sum(x[..., 6:10] ** 2, dim=-1, keepdim=True) - 1.0
+    elif quaternion == "baumgarte":
+        alpha_b, beta_b = 2.0, 2.0
+
+        def eq(x, u, k):
+            xdot = ac.state_derivative(params, x, u, wind)
+            phi = torch.sum(x[..., 6:10] ** 2, dim=-1, keepdim=True) - 1.0
+            phi_dot = 2.0 * torch.sum(x[..., 6:10] * xdot[..., 6:10], dim=-1,
+                                      keepdim=True)
+            return 2.0 * alpha_b * phi_dot + beta_b ** 2 * phi
+    else:
+        eq = OCPFunctions.eq
+
+    kwargs = {}
+    if terminal_ineq is not None:
+        kwargs["terminal_ineq"] = terminal_ineq
+    if terminal_eq is not None:
+        kwargs["terminal_eq"] = terminal_eq
+    return OCPFunctions(step=lambda x, u, k: step(x, u, dt),
+                        stage_cost=stage_cost, terminal_cost=terminal_cost,
+                        ineq=ineq, eq=eq, **kwargs)
