@@ -301,3 +301,388 @@ def receding_warm_start(params: AircraftParams, config: TrajectoryConfig, *,
     else:
         us = np.zeros((num_nodes, 7), np.float32)
     return torch.as_tensor(us, device=dev)
+
+
+def _trim_control(params, config, generator, z0s):
+    """The racing warm start's trim, of the plant as flown, from the start
+    cloud ``z0s`` or 32 draws of ``generator`` (a seed-0 CPU generator by
+    default; the reference draws from ``PRNGKey(0)``, which torch cannot
+    replay)."""
+    from aircraft_tpu_torch.solvers.trim import multistart_trim
+
+    if z0s is None and generator is None:
+        generator = torch.Generator().manual_seed(0)
+    trim = multistart_trim(
+        params, z0s, n_starts=32,
+        target_airspeed=float(config.waypoints.default_velocity),
+        generator=generator)
+    return trim.control
+
+
+def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
+                          *, num_nodes: int = 100, dt: float = 0.02,
+                          substeps: int = 1, time_mode: str = "fixed",
+                          dt_bounds: Optional[tuple] = None,
+                          solver_config: Optional[SolverConfig] = None,
+                          warm_start: bool = True,
+                          warm_start_mode: str = "tracking",
+                          report_out: Optional[dict] = None,
+                          generator: Optional[torch.Generator] = None,
+                          z0s: Optional[torch.Tensor] = None,
+                          cuda_chol: bool = False,
+                          device="cuda") -> ilqr.ILQRSolution:
+    """End-to-end waypoint traversal: the tracking (or receding) warm
+    start, then the complementarity OCP, one unbatched solve.
+
+    Free-time modes are staged: the fixed-time solve first, then
+    ``_refine_free_time`` frees the timesteps around it.  ``generator`` or
+    ``z0s`` give the trim start cloud (see ``_trim_control``)."""
+    dev = resolve_device(device)
+    if params.device != dev:
+        params = params.to(dev)
+    if dt_bounds is None:
+        # the nominal dt strictly inside the free-time box
+        dt_bounds = (dt / 10.0, dt * 4.0)
+    if time_mode in ("progress", "variable", "adaptive"):
+        sol_fixed = solve_waypoint_racing(
+            params, config, num_nodes=num_nodes, dt=dt, substeps=substeps,
+            time_mode="fixed", solver_config=solver_config,
+            warm_start=warm_start, warm_start_mode=warm_start_mode,
+            generator=generator, z0s=z0s, device=dev)
+        return _refine_free_time(
+            params, config, sol_fixed, num_nodes=num_nodes, dt=dt,
+            substeps=substeps, time_mode=time_mode, dt_bounds=dt_bounds,
+            solver_config=solver_config, report_out=report_out,
+            cuda_chol=cuda_chol, device=dev)
+    ocp = build_waypoint_ocp(params, config, dt=dt, num_nodes=num_nodes,
+                             substeps=substeps, time_mode=time_mode,
+                             dt_bounds=dt_bounds)
+    z0, vs = initial_guess(config, num_nodes, time_mode=time_mode, dt=dt,
+                           device=dev)
+    if warm_start:
+        trim_control = _trim_control(params, config, generator, z0s)
+        if warm_start_mode == "receding":
+            us_track = receding_warm_start(params, config,
+                                           num_nodes=num_nodes, dt=dt,
+                                           substeps=substeps, device=dev)
+        else:
+            us_track = tracking_warm_start(params, config,
+                                           num_nodes=num_nodes, dt=dt,
+                                           substeps=substeps,
+                                           trim_control=trim_control,
+                                           device=dev)
+        # the μ passage impulses at the tracked flight's closest approaches
+        step13 = integrators.make_step_fn(params, substeps=substeps,
+                                          normalize="step")
+        xs_track = rollout(step13, z0[:13], us_track, dt)
+        vs_np = vs.cpu().numpy()
+        vs_np[:, :7] = us_track.cpu().numpy()
+        vs = torch.as_tensor(_place_mu_numpy(
+            vs_np, xs_track.cpu().numpy(), config.waypoints.array()),
+            device=dev)
+    cfg = solver_config or SolverConfig(max_al_iters=8, max_inner_iters=25)
+    return ilqr.solve(ocp, z0, vs, cfg)
+
+
+def _uniform_candidate_sweep(params: AircraftParams, config: TrajectoryConfig,
+                             sol_nominal: ilqr.ILQRSolution,
+                             dt_nominal: float, dts, *, num_nodes: int,
+                             substeps: int, solver_config: SolverConfig,
+                             cuda_chol: bool = False) -> ilqr.ILQRSolution:
+    """The fixed-time racing problem at each uniform dt of ``dts`` (C,),
+    all C candidates as one batch-leading ``solve_impl``, each seeded with
+    the nominal solution's controls (with its solved μ distribution) and,
+    as ``xs_init``, its trajectory time-warped to the candidate's rate
+    (velocities and body rates scaled by dt_nominal / dt_i, so position
+    rows agree with the candidate's dynamics by construction).  Returns
+    the batch's solution.
+
+    A candidate whose solve never accepted a rollout hands its seed back:
+    callers gate every candidate on ``ocp.rollout_defect``."""
+    dev = params.device
+    dts = torch.as_tensor(np.asarray(dts, np.float32), device=dev)
+    C = dts.shape[0]
+    z0, _ = initial_guess(config, num_nodes, time_mode="fixed",
+                          dt=float(dts[0]), device=dev)
+    us_nom = torch.as_tensor(sol_nominal.us, device=dev)
+    xs_nom = torch.as_tensor(sol_nominal.xs, device=dev)
+    scale = (torch.tensor(dt_nominal, dtype=torch.float32, device=dev)
+             / dts)[:, None, None]
+    xs_init = xs_nom[None].repeat(C, 1, 1)
+    xs_init[..., 3:6] *= scale
+    xs_init[..., 10:13] *= scale
+    ocp = build_waypoint_ocp(params, config, dt=dts, num_nodes=num_nodes,
+                             substeps=substeps, time_mode="fixed")
+    return ilqr.solve_impl(ocp, z0[None].expand(C, -1).contiguous(),
+                           us_nom[None].expand(C, -1, -1).contiguous(),
+                           solver_config, xs_init=xs_init,
+                           cuda_chol=cuda_chol)
+
+
+def _batched_defects(params, config, dts, xs, us, *, num_nodes, substeps):
+    """``rollout_defect`` of each candidate at its own dt, (C,) numpy."""
+    ocp = build_waypoint_ocp(
+        params, config,
+        dt=torch.as_tensor(np.asarray(dts, np.float32), device=params.device),
+        num_nodes=num_nodes, substeps=substeps, time_mode="fixed")
+    return ocp_mod.rollout_defect(ocp, xs, us).cpu().numpy()
+
+
+def _take(sol: ilqr.ILQRSolution, i: int) -> ilqr.ILQRSolution:
+    """Candidate i of a batched solution, unbatched."""
+    al = (None if sol.al is None else
+          ALState(*(getattr(sol.al, f)[i] for f in ocp_mod._AL_FIELDS)))
+    return ilqr.ILQRSolution(*(t[i] for t in sol[:-1]), al=al)
+
+
+def _refine_free_time(params: AircraftParams, config: TrajectoryConfig,
+                      sol_fixed: ilqr.ILQRSolution, *, num_nodes: int,
+                      dt: float, substeps: int, time_mode: str,
+                      dt_bounds: tuple,
+                      solver_config: Optional[SolverConfig],
+                      report_out: Optional[dict] = None,
+                      cuda_chol: bool = False,
+                      device="cuda") -> ilqr.ILQRSolution:
+    """Stage B of the free-time solve.
+
+    B0, uniform contraction: the fixed-time problem re-solved at a ladder
+    of sub-nominal uniform dts (one batch of 5, seeded from the
+    incumbent), and the fastest feasible schedule taken.  B1, per-knot
+    refinement around the B0 winner in the mode's own formulation, inside
+    a trust-region dt box.  Returns the best of {incumbent, B0 winner, B1}
+    by feasibility, then total time.  ``report_out`` receives the
+    reference's ``b0_ladder``, ``b0_winner_scale`` and ``b1`` records."""
+    dev = resolve_device(device)
+    if params.device != dev:
+        params = params.to(dev)
+    cfg = solver_config or SolverConfig(max_al_iters=8, max_inner_iters=25)
+    tol = float(config.waypoints.tolerance)
+    wps = np.asarray(config.waypoints.array())
+
+    def miss_of(xs):
+        xs = np.asarray(xs)
+        return max(float(np.linalg.norm(xs[:, :3] - w, axis=1).min())
+                   for w in wps)
+
+    # B0: uniform contraction ladder (sub-nominal and the nominal)
+    scales = np.asarray([0.70, 0.78, 0.86, 0.93, 1.0], np.float32)
+    dts_u = np.maximum(scales * dt, dt_bounds[0])
+    sweep = _uniform_candidate_sweep(
+        params, config, sol_fixed, dt, dts_u, num_nodes=num_nodes,
+        substeps=substeps, solver_config=cfg, cuda_chol=cuda_chol)
+    xs_u = sweep.xs.cpu().numpy()
+    miss_u = np.asarray([miss_of(xs_u[i]) for i in range(len(dts_u))])
+    fin_u = np.isfinite(xs_u).all(axis=(1, 2))
+    # a candidate that kept its time-warped seed is no flyable schedule
+    defects = _batched_defects(params, config, dts_u, sweep.xs, sweep.us,
+                               num_nodes=num_nodes, substeps=substeps)
+    feas_u = (miss_u <= tol) & fin_u & (defects < 1e-2)
+    best_u = None
+    for i in np.argsort(dts_u):
+        if feas_u[i]:
+            best_u = int(i)
+            break
+    if report_out is not None:
+        report_out["b0_ladder"] = [
+            {"scale": round(float(dts_u[i] / dt), 3),
+             "dt": round(float(dts_u[i]), 5),
+             "total_time_s": round(float(dts_u[i]) * num_nodes, 3),
+             "max_waypoint_miss_m": round(float(miss_u[i]), 2),
+             "rollout_defect": round(float(defects[i]), 5),
+             "finite": bool(fin_u[i]),
+             "feasible": bool(feas_u[i])}
+            for i in range(len(dts_u))]
+        report_out["b0_winner_scale"] = (
+            round(float(dts_u[best_u] / dt), 3) if best_u is not None
+            else None)
+
+    if best_u is not None and dts_u[best_u] < dt:
+        dt_b = float(dts_u[best_u])
+        sol_b = _take(sweep, best_u)
+    else:
+        dt_b, sol_b = dt, sol_fixed
+    us_b, xs_b = sol_b.us, sol_b.xs
+
+    # B1: per-knot refinement in the mode's own formulation
+    tr = (max(dt_bounds[0], 0.5 * dt_b), min(dt_bounds[1], 2.0 * dt_b))
+    ocp = build_waypoint_ocp(params, config, dt=dt_b, num_nodes=num_nodes,
+                             substeps=substeps, time_mode=time_mode,
+                             dt_bounds=tr)
+    z0, _ = initial_guess(config, num_nodes, time_mode=time_mode, dt=dt_b,
+                          device=dev)
+    nu0 = (1.0 / np.sqrt(dt_b)) if time_mode == "progress" else np.sqrt(dt_b)
+    vs = torch.cat([us_b, torch.full((num_nodes, 1), float(nu0),
+                                     device=dev)], dim=1)
+    # trajectory-seeded: replaying the winner's controls open-loop can
+    # diverge through chaotic regimes
+    sol = ilqr.solve(ocp, z0, vs, cfg, None, xs_b)
+
+    def timed_metrics(xs, vss):
+        nu = vss.cpu().numpy()[:, -1]
+        dts = (1.0 / (nu ** 2 + 1e-9)) if time_mode == "progress" else nu ** 2
+        xs = xs.cpu().numpy()
+        return miss_of(xs), float(dts.sum()), bool(np.isfinite(xs).all())
+
+    miss_r, T_r, fin_r = timed_metrics(sol.xs, sol.us)
+    miss_i, T_i = miss_of(xs_b.cpu().numpy()), dt_b * num_nodes
+    accept = fin_r and ((miss_r <= tol and (miss_i > tol or T_r <= T_i))
+                        or (miss_i > tol and miss_r <= miss_i))
+    if report_out is not None:
+        report_out["b1"] = {
+            "mode": time_mode,
+            "trust_region_dt": [round(float(t), 5) for t in tr],
+            "refined_total_time_s": round(T_r, 3),
+            "refined_max_miss_m": round(miss_r, 2),
+            "incumbent_total_time_s": round(T_i, 3),
+            "incumbent_max_miss_m": round(miss_i, 2),
+            "finite": bool(fin_r),
+            "accepted": bool(accept),
+        }
+    if accept:
+        return sol
+    # outer rejection: the B0 winner lifted into the free-time variables
+    viol = ocp_mod.max_violation(ocp, xs_b[None], vs[None])[0]
+    return ilqr.ILQRSolution(xs=xs_b, us=vs, cost=sol_b.cost, violation=viol,
+                             converged=sol_b.converged,
+                             iterations=sol_b.iterations,
+                             grad_norm=sol_b.grad_norm, al=None)
+
+
+def solve_time_optimal(params: AircraftParams, config: TrajectoryConfig, *,
+                       num_nodes: int = 70, dt_nominal: float = 0.1,
+                       substeps: int = 1, n_candidates: int = 8,
+                       dt_span: tuple = (0.6, 1.4),
+                       solver_config: Optional[SolverConfig] = None,
+                       per_candidate_warm_start: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       z0s: Optional[torch.Tensor] = None,
+                       cuda_chol: bool = False, device="cuda") -> dict:
+    """Time-optimal waypoint racing by a batched time-scale sweep: the
+    nominal fixed-time racing problem is solved first, then
+    ``n_candidates`` uniform dts across ``dt_span`` × ``dt_nominal`` in
+    one batch, each warm-started from the nominal solution
+    (``_uniform_candidate_sweep``), and the nominal joins the candidates.
+    The shortest schedule whose waypoints pass within tolerance as a true
+    rollout (defect < 1e-2) wins; with none, the smallest worst miss.
+
+    ``per_candidate_warm_start=False`` is the reference's legacy branch,
+    which reads a ``trim`` it never binds and so raises NameError there;
+    here it raises NotImplementedError."""
+    if not per_candidate_warm_start:
+        raise NotImplementedError(
+            "per_candidate_warm_start=False: the reference's legacy shared "
+            "warm start reads an unbound `trim` and raises NameError; it "
+            "is not ported")
+    dev = resolve_device(device)
+    if params.device != dev:
+        params = params.to(dev)
+    dts = np.linspace(dt_span[0] * dt_nominal, dt_span[1] * dt_nominal,
+                      n_candidates).astype(np.float32)
+    wps_np = np.asarray(config.waypoints.array())
+    cfg_s = solver_config or SolverConfig(max_al_iters=6, max_inner_iters=20)
+
+    nominal = solve_waypoint_racing(
+        params, config, num_nodes=num_nodes, dt=dt_nominal,
+        substeps=substeps, time_mode="fixed", solver_config=cfg_s,
+        generator=generator, z0s=z0s, device=dev)
+    sols = _uniform_candidate_sweep(
+        params, config, nominal, dt_nominal, dts, num_nodes=num_nodes,
+        substeps=substeps, solver_config=cfg_s, cuda_chol=cuda_chol)
+    # the nominal solve joins the candidates as the last row
+    sols = ilqr.ILQRSolution(
+        *(torch.cat([c, n[None]]) for c, n in zip(sols[:-1], nominal[:-1])),
+        al=ALState.cat([sols.al, ALState(*(getattr(nominal.al, f)[None]
+                                           for f in ocp_mod._AL_FIELDS))]))
+    dts = np.concatenate([dts, [np.float32(dt_nominal)]])
+
+    xs = sols.xs.cpu().numpy()
+    tol = config.waypoints.tolerance
+    dmins = np.stack(
+        [np.linalg.norm(xs[:, :, :3] - w, axis=-1).min(axis=1)
+         for w in wps_np], axis=-1)
+    # feasible: inside the declared tolerance, and a true rollout
+    defects = _batched_defects(params, config, dts, sols.xs, sols.us,
+                               num_nodes=num_nodes, substeps=substeps)
+    feasible = ((dmins < tol).all(axis=-1)
+                & np.isfinite(xs).all(axis=(1, 2)) & (defects < 1e-2))
+    T = dts * num_nodes
+    best = None
+    for i in np.argsort(T):
+        if feasible[i]:
+            best = int(i)
+            break
+    if best is None:
+        best = int(np.argmin(dmins.max(axis=-1)))
+    return {
+        "solution": _take(sols, best),
+        "dt": float(dts[best]),
+        "total_time": float(T[best]),
+        "feasible": feasible,
+        "dmins": dmins,
+        "candidate_times": T,
+        "candidate_dts": np.asarray(dts, np.float64),
+        "defects": defects,
+    }
+
+
+def solve_waypoint_legs(params: AircraftParams, config: TrajectoryConfig, *,
+                        nodes_per_leg: int = 90, dt: float = 0.1,
+                        substeps: int = 10,
+                        solver_config: Optional[SolverConfig] = None,
+                        generator: Optional[torch.Generator] = None,
+                        z0s: Optional[torch.Tensor] = None,
+                        device="cuda") -> dict:
+    """Leg-by-leg waypoint traversal: a short 1-waypoint racing solve to
+    each waypoint in turn, every leg starting from the previous leg's
+    closest-approach state (the shape of the flagship controller's outer
+    loop)."""
+    dev = resolve_device(device)
+    cfg_s = solver_config or SolverConfig(max_al_iters=6, max_inner_iters=20)
+    wps = np.asarray(config.waypoints.array())
+    state = np.asarray(config.waypoints.initial_state, np.float32)
+    all_states, all_controls, dmins = [state[None, :]], [], []
+    for wpt in wps:
+        leg_dict = {
+            "waypoints": {
+                "waypoints": [wpt.tolist()],
+                "initial_state": state.tolist(),
+                "default_velocity": config.waypoints.default_velocity,
+                "waypoint_indices": list(config.waypoints.waypoint_indices),
+                "waypoint_tolerance": config.waypoints.tolerance,
+            },
+            "aircraft": dataclasses.asdict(config.aircraft),
+            "state": {
+                "alpha": list(config.state.alpha),
+                "beta": list(config.state.beta),
+                "airspeed": list(config.state.airspeed),
+            },
+            "control": {
+                "aileron_limit": list(config.control.aileron),
+                "elevator_limit": list(config.control.elevator),
+                "rudder_limit": list(config.control.rudder),
+                "throttle_limit": [list(config.control.throttle[0]),
+                                   list(config.control.throttle[1])],
+                "centre_of_mass_limit": [
+                    list(config.control.centre_of_mass[0]),
+                    list(config.control.centre_of_mass[1])],
+            },
+        }
+        sol = solve_waypoint_racing(
+            params, TrajectoryConfig.from_dict(leg_dict),
+            num_nodes=nodes_per_leg, dt=dt, substeps=substeps,
+            solver_config=cfg_s, generator=generator, z0s=z0s, device=dev)
+        xs = sol.xs.cpu().numpy()
+        d = np.linalg.norm(xs[:, :3] - wpt, axis=1)
+        k = int(np.argmin(d))
+        dmins.append(float(d[k]))
+        # commit up to the closest-approach knot, start the next leg there
+        all_states.append(xs[1:k + 1, :13])
+        all_controls.append(sol.us.cpu().numpy()[:k, :7])
+        state = xs[k, :13].astype(np.float32)
+    return {
+        "states": np.concatenate(all_states, axis=0),
+        "controls": (np.concatenate(all_controls, axis=0) if all_controls
+                     else np.zeros((0, 7), np.float32)),
+        "dmins": dmins,
+        "success": all(d < config.waypoints.tolerance for d in dmins),
+    }
