@@ -43,6 +43,19 @@ data (n = 13, m = 7, ``np.random.default_rng(0)``) at each of
 prints the reference mode's keys, ``device`` holding the card's name and
 power limit.
 
+``--mode whole`` (``BENCH_MODE=whole``): the reference's whole-trajectory
+experiment, one fixed-time solve at N = ``--horizon`` (297) knots, dt =
+0.01, default aero model, RK4, a terminal goal cost toward the reachable
+goal [146, 8, -195] with every control channel penalised, at ``--al-iters
+6 --inner-iters 25``, Gauss-Newton curvature, penalty 10.  Its warm start
+is ``waypoints.receding_warm_start`` (``--window`` 50, ``--overlap`` 30:
+MHTT flies the Dubins line to the goal, on the window kernels on the
+card), timed apart.  The first solve is untimed (``compile_wall_s``); the
+value is the median of ``--reps`` (3) more.  It prints the reference
+mode's keys, ``device`` holding the card's name and power limit, and
+``vs_baseline`` against the reference's 12 s of CasADi/IPOPT solver time
+on a CPU, a ratio and not a target.
+
 ``--mode latency`` (``BENCH_MODE=latency``): one aircraft's N=50 window
 solve at the headline budget, ``--reps`` times (30) from the same state,
 p50 / p90 against the 0.2 s of flight a window commits.  ``--mode serve``
@@ -670,10 +683,108 @@ def bench_serve(device="cuda", *, windows=50, pipeline=True, horizon=N_HORIZON,
     }
 
 
+WHOLE_GOAL = (146.0, 8.0, -195.0)
+WHOLE_HORIZON = 297
+
+
+def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
+                inner_iters=25, riccati_mode="sequential",
+                penalty_init=10.0, window=50, overlap=30,
+                warm_iters=(2, 10), reps=3) -> dict:
+    """One whole-trajectory fixed-time solve toward ``WHOLE_GOAL`` (the
+    reference's exact goal sits behind the start, out of reach in 2.97 s;
+    this one is 146 m ahead, reached at the 50 m/s initial airspeed), from
+    the receding-horizon tracker's controls (``warm_iters`` AL rounds x
+    inner iterations per window, Gauss-Newton)."""
+    import dataclasses
+
+    from aircraft_tpu_torch.control.aircraft import (build_aircraft_ocp,
+                                                     goal_cost)
+    from aircraft_tpu_torch.control.waypoints import receding_warm_start
+
+    dev = resolve_device(device)
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft, device=dev)  # default aero
+    stage0, terminal = goal_cost(WHOLE_GOAL, w_goal=1e-2, w_control=1e-2,
+                                 device=dev)
+
+    def stage(x, u, k):
+        # every channel: goal_cost charges only the surfaces (u[:3])
+        return stage0(x, u, k) + 1e-3 * torch.sum((u[..., 3:] / 10.0) ** 2,
+                                                  dim=-1)
+
+    ocp = build_aircraft_ocp(params, cfg, dt=DT, stage_cost=stage,
+                             terminal_cost=terminal, quaternion="integration",
+                             integration="explicit")
+    config = SolverConfig(max_al_iters=al_iters, max_inner_iters=inner_iters,
+                          hessian="gauss_newton", riccati=riccati_mode,
+                          penalty_init=penalty_init)
+    x0 = torch.as_tensor(cfg.waypoints.initial_state, dtype=torch.float32,
+                         device=dev)
+    # the tracker flies the Dubins line to the goal at the initial airspeed
+    cfg1 = dataclasses.replace(cfg, waypoints=dataclasses.replace(
+        cfg.waypoints, waypoints=(WHOLE_GOAL,), waypoint_indices=(0, 1, 2),
+        default_velocity=50.0))
+    _sync(dev)
+    t0 = time.perf_counter()
+    us0 = receding_warm_start(
+        params, cfg1, num_nodes=horizon, dt=DT, window=window,
+        overlap=overlap, device=dev, solver_config=SolverConfig(
+            max_al_iters=warm_iters[0], max_inner_iters=warm_iters[1],
+            hessian="gauss_newton"))
+    _sync(dev)
+    warm_wall = time.perf_counter() - t0
+    warm_launches = kernel_launches()
+
+    def solve():
+        return ilqr.solve_impl(ocp, x0[None], us0[None], config)
+
+    t0 = time.perf_counter()
+    sol = solve()
+    _sync(dev)
+    first_wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        sol = solve()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    goal = torch.as_tensor(WHOLE_GOAL, device=dev)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        sol.xs, sol.us, sol.cost, sol.violation))
+    return {
+        "metric": f"whole_trajectory_solve_s_N{horizon}",
+        "value": round(wall, 4),
+        "unit": "s",
+        "vs_baseline": round(12.0 / wall, 1),    # the reference's solver time
+        "ref_wall_with_callback_s": 423.6,
+        "horizon": horizon,
+        "goal_miss_m": round(float(torch.linalg.norm(sol.xs[0, -1, :3]
+                                                     - goal)), 2),
+        "cost": round(float(sol.cost[0]), 2),
+        "violation": round(float(sol.violation[0]), 3),
+        "iterations": int(sol.iterations[0]),
+        "compile_wall_s": round(first_wall, 1),
+        "warm_start_wall_s": round(warm_wall, 2),
+        "device": _card(dev),
+        "matmul_precision": matmul_precision(),
+        "al_iters": al_iters,
+        "inner_iters": inner_iters,
+        "wall_s_per_inner_iteration": round(wall / (al_iters * inner_iters),
+                                            4),
+        "reps": reps,
+        "finite": finite,
+        "warm_start_kernel_launches": warm_launches,
+    }
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("headline", "kernel", "chol",
-                                      "riccati", "latency", "serve"),
+                                      "riccati", "latency", "serve",
+                                      "whole"),
                    default="headline")
     p.add_argument("--solver", choices=("fused", "ilqr"), default="fused")
     p.add_argument("--cuda-chol", action="store_true",
@@ -682,10 +793,13 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch", type=int, default=None,
                    help="256 (headline), 1024 (kernel), 12800 (chol)")
-    p.add_argument("--horizon", type=int, default=N_HORIZON)
+    p.add_argument("--horizon", type=int, default=None,
+                   help="50 (297 in the whole mode)")
     p.add_argument("--substeps", type=int, default=10, help="kernel mode")
-    p.add_argument("--al-iters", type=int, default=3)
-    p.add_argument("--inner-iters", type=int, default=12)
+    p.add_argument("--al-iters", type=int, default=None,
+                   help="3 (6 in the whole mode)")
+    p.add_argument("--inner-iters", type=int, default=None,
+                   help="12 (25 in the whole mode)")
     p.add_argument("--line-search", type=int, default=6)
     p.add_argument("--warmup", type=int, default=6)
     p.add_argument("--reps", type=int, default=None,
@@ -696,9 +810,29 @@ def main(argv=None) -> None:
     p.add_argument("--windows", type=int, default=50, help="serve mode")
     p.add_argument("--no-pipeline", action="store_true",
                    help="serve mode: the synchronous loop")
+    p.add_argument("--window", type=int, default=50,
+                   help="whole mode: the warm start's window")
+    p.add_argument("--overlap", type=int, default=30,
+                   help="whole mode: the warm start's window overlap")
+    p.add_argument("--warm-iters", default="2,10",
+                   help="whole mode: the warm start's AL rounds,inner "
+                   "iterations per window")
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
-    if a.mode == "kernel":
+    whole = a.mode == "whole"
+    if a.horizon is None:
+        a.horizon = WHOLE_HORIZON if whole else N_HORIZON
+    if a.al_iters is None:
+        a.al_iters = 6 if whole else 3
+    if a.inner_iters is None:
+        a.inner_iters = 25 if whole else 12
+    if whole:
+        out = bench_whole(a.device, horizon=a.horizon, al_iters=a.al_iters,
+                          inner_iters=a.inner_iters, window=a.window,
+                          overlap=a.overlap, warm_iters=tuple(
+                              int(i) for i in a.warm_iters.split(",")),
+                          reps=3 if a.reps is None else a.reps)
+    elif a.mode == "kernel":
         out = bench_kernel(a.device, batch=a.batch or 1024, horizon=a.horizon,
                            substeps=a.substeps, reps=a.reps or 5)
     elif a.mode == "chol":

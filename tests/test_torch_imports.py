@@ -77,8 +77,11 @@ def test_kernel_sources_ship_with_the_package():
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch import bench, device
     from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control import aircraft as ac
+    from aircraft_tpu_torch.control import waypoints as wp
     from aircraft_tpu_torch.control.course import solve_full_course
     from aircraft_tpu_torch.control.initialisation import DubinsInitialiser
+    from aircraft_tpu_torch.examples import glider_time_probe
     from aircraft_tpu_torch.control.mhtt import MHTT
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
@@ -102,7 +105,18 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: ocp.make_squash_maps(*box),
                  lambda: ocp.squash_controls(ocp.OCPFunctions(
                      step=None, stage_cost=None, terminal_cost=None), *box),
-                 lambda: trim.start_cloud(4, torch.Generator())):
+                 lambda: trim.start_cloud(4, torch.Generator()),
+                 lambda: bench.bench_whole(),
+                 lambda: ac.goal_cost([0.0, 0.0, 0.0]),
+                 lambda: wp.initial_guess(cfg, 4),
+                 lambda: wp.tracking_warm_start(params, cfg, num_nodes=4,
+                                                dt=0.1),
+                 lambda: wp.receding_warm_start(params, cfg, num_nodes=4,
+                                                dt=0.1),
+                 lambda: wp.solve_waypoint_racing(params, cfg),
+                 lambda: wp.solve_time_optimal(params, cfg),
+                 lambda: wp.solve_waypoint_legs(params, cfg),
+                 lambda: glider_time_probe.run_probe_ladder()):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
