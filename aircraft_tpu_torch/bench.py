@@ -687,20 +687,17 @@ WHOLE_GOAL = (146.0, 8.0, -195.0)
 WHOLE_HORIZON = 297
 
 
-def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
-                inner_iters=25, riccati_mode="sequential",
-                penalty_init=10.0, window=50, overlap=30,
-                warm_iters=(2, 10), reps=3) -> dict:
-    """One whole-trajectory fixed-time solve toward ``WHOLE_GOAL`` (the
-    reference's exact goal sits behind the start, out of reach in 2.97 s;
-    this one is 146 m ahead, reached at the 50 m/s initial airspeed), from
-    the receding-horizon tracker's controls (``warm_iters`` AL rounds x
-    inner iterations per window, Gauss-Newton)."""
+def whole_problem(device="cuda"):
+    """The whole mode's problem: the default-aero plant, its OCP toward
+    ``WHOLE_GOAL`` (the reference's exact goal sits behind the start, out
+    of reach in 2.97 s; this one is 146 m ahead, reached at the 50 m/s
+    initial airspeed), the initial state, and the course the warm start's
+    tracker flies (the Dubins line to the goal at the initial airspeed).
+    Returns (params, ocp, x0, track_config)."""
     import dataclasses
 
     from aircraft_tpu_torch.control.aircraft import (build_aircraft_ocp,
                                                      goal_cost)
-    from aircraft_tpu_torch.control.waypoints import receding_warm_start
 
     dev = resolve_device(device)
     cfg = glider_config()
@@ -716,15 +713,34 @@ def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
     ocp = build_aircraft_ocp(params, cfg, dt=DT, stage_cost=stage,
                              terminal_cost=terminal, quaternion="integration",
                              integration="explicit")
+    x0 = torch.as_tensor(cfg.waypoints.initial_state, dtype=torch.float32,
+                         device=dev)
+    track_config = dataclasses.replace(cfg, waypoints=dataclasses.replace(
+        cfg.waypoints, waypoints=(WHOLE_GOAL,), waypoint_indices=(0, 1, 2),
+        default_velocity=50.0))
+    return params, ocp, x0, track_config
+
+
+def whole_goal_miss(sol) -> float:
+    """Distance of the first scenario's final position from the goal."""
+    goal = torch.as_tensor(WHOLE_GOAL, device=sol.xs.device)
+    return float(torch.linalg.norm(sol.xs[0, -1, :3] - goal))
+
+
+def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
+                inner_iters=25, riccati_mode="sequential",
+                penalty_init=10.0, window=50, overlap=30,
+                warm_iters=(2, 10), reps=3) -> dict:
+    """One whole-trajectory fixed-time solve of ``whole_problem`` from the
+    receding-horizon tracker's controls (``warm_iters`` AL rounds x inner
+    iterations per window, Gauss-Newton)."""
+    from aircraft_tpu_torch.control.waypoints import receding_warm_start
+
+    dev = resolve_device(device)
+    params, ocp, x0, cfg1 = whole_problem(dev)
     config = SolverConfig(max_al_iters=al_iters, max_inner_iters=inner_iters,
                           hessian="gauss_newton", riccati=riccati_mode,
                           penalty_init=penalty_init)
-    x0 = torch.as_tensor(cfg.waypoints.initial_state, dtype=torch.float32,
-                         device=dev)
-    # the tracker flies the Dubins line to the goal at the initial airspeed
-    cfg1 = dataclasses.replace(cfg, waypoints=dataclasses.replace(
-        cfg.waypoints, waypoints=(WHOLE_GOAL,), waypoint_indices=(0, 1, 2),
-        default_velocity=50.0))
     _sync(dev)
     t0 = time.perf_counter()
     us0 = receding_warm_start(
@@ -751,7 +767,6 @@ def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
         _sync(dev)
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    goal = torch.as_tensor(WHOLE_GOAL, device=dev)
     finite = all(bool(torch.isfinite(t).all()) for t in (
         sol.xs, sol.us, sol.cost, sol.violation))
     return {
@@ -761,8 +776,7 @@ def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
         "vs_baseline": round(12.0 / wall, 1),    # the reference's solver time
         "ref_wall_with_callback_s": 423.6,
         "horizon": horizon,
-        "goal_miss_m": round(float(torch.linalg.norm(sol.xs[0, -1, :3]
-                                                     - goal)), 2),
+        "goal_miss_m": round(whole_goal_miss(sol), 2),
         "cost": round(float(sol.cost[0]), 2),
         "violation": round(float(sol.violation[0]), 3),
         "iterations": int(sol.iterations[0]),

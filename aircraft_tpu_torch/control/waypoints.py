@@ -329,6 +329,7 @@ def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
                           report_out: Optional[dict] = None,
                           generator: Optional[torch.Generator] = None,
                           z0s: Optional[torch.Tensor] = None,
+                          warm_start_config: Optional[SolverConfig] = None,
                           cuda_chol: bool = False,
                           device="cuda") -> ilqr.ILQRSolution:
     """End-to-end waypoint traversal: the tracking (or receding) warm
@@ -336,7 +337,9 @@ def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
 
     Free-time modes are staged: the fixed-time solve first, then
     ``_refine_free_time`` frees the timesteps around it.  ``generator`` or
-    ``z0s`` give the trim start cloud (see ``_trim_control``)."""
+    ``z0s`` give the trim start cloud (see ``_trim_control``);
+    ``warm_start_config`` replaces the warm start's own budget (1 x 30
+    tracking, 2 x 10 receding)."""
     dev = resolve_device(device)
     if params.device != dev:
         params = params.to(dev)
@@ -348,7 +351,8 @@ def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
             params, config, num_nodes=num_nodes, dt=dt, substeps=substeps,
             time_mode="fixed", solver_config=solver_config,
             warm_start=warm_start, warm_start_mode=warm_start_mode,
-            generator=generator, z0s=z0s, device=dev)
+            generator=generator, z0s=z0s,
+            warm_start_config=warm_start_config, device=dev)
         return _refine_free_time(
             params, config, sol_fixed, num_nodes=num_nodes, dt=dt,
             substeps=substeps, time_mode=time_mode, dt_bounds=dt_bounds,
@@ -362,15 +366,15 @@ def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
     if warm_start:
         trim_control = _trim_control(params, config, generator, z0s)
         if warm_start_mode == "receding":
-            us_track = receding_warm_start(params, config,
-                                           num_nodes=num_nodes, dt=dt,
-                                           substeps=substeps, device=dev)
+            us_track = receding_warm_start(
+                params, config, num_nodes=num_nodes, dt=dt,
+                substeps=substeps, solver_config=warm_start_config,
+                device=dev)
         else:
-            us_track = tracking_warm_start(params, config,
-                                           num_nodes=num_nodes, dt=dt,
-                                           substeps=substeps,
-                                           trim_control=trim_control,
-                                           device=dev)
+            us_track = tracking_warm_start(
+                params, config, num_nodes=num_nodes, dt=dt,
+                substeps=substeps, trim_control=trim_control,
+                solver_config=warm_start_config, device=dev)
         # the μ passage impulses at the tracked flight's closest approaches
         step13 = integrators.make_step_fn(params, substeps=substeps,
                                           normalize="step")
@@ -556,6 +560,7 @@ def solve_time_optimal(params: AircraftParams, config: TrajectoryConfig, *,
                        per_candidate_warm_start: bool = True,
                        generator: Optional[torch.Generator] = None,
                        z0s: Optional[torch.Tensor] = None,
+                       warm_start_config: Optional[SolverConfig] = None,
                        cuda_chol: bool = False, device="cuda") -> dict:
     """Time-optimal waypoint racing by a batched time-scale sweep: the
     nominal fixed-time racing problem is solved first, then
@@ -584,7 +589,8 @@ def solve_time_optimal(params: AircraftParams, config: TrajectoryConfig, *,
     nominal = solve_waypoint_racing(
         params, config, num_nodes=num_nodes, dt=dt_nominal,
         substeps=substeps, time_mode="fixed", solver_config=cfg_s,
-        generator=generator, z0s=z0s, device=dev)
+        generator=generator, z0s=z0s, warm_start_config=warm_start_config,
+        device=dev)
     sols = _uniform_candidate_sweep(
         params, config, nominal, dt_nominal, dts, num_nodes=num_nodes,
         substeps=substeps, solver_config=cfg_s, cuda_chol=cuda_chol)

@@ -12,7 +12,8 @@ nominal schedule, 6 AL rounds x 20 inner iterations, as the reference's
 ``examples/glider_time_probe.py``; ``--num-nodes``, ``--substeps``,
 ``--candidates``, ``--al-iters`` and ``--inner-iters`` cut it down.
 ``--cuda-chol`` puts the candidate sweep's Riccati solves on the
-batched-Cholesky kernel.  Writes the record (the reference's keys,
+batched-Cholesky kernel; the record counts its launches and fallbacks
+(``kernel_launches``).  Writes the record (the reference's keys,
 ``device`` holding the card's name and power limit) to ``--out`` and
 prints it without the ladder; each ladder row goes to stderr as it is
 made.
@@ -68,7 +69,7 @@ def run_probe_ladder(*, num_nodes: int = 70, dt: float = 0.1,
                      substeps: int = 10, n_candidates: int = 8,
                      al_iters: int = 6, inner_iters: int = 20,
                      cuda_chol: bool = False, device="cuda") -> dict:
-    from aircraft_tpu_torch.bench import _card
+    from aircraft_tpu_torch.bench import _card, kernel_launches
     from aircraft_tpu_torch.control import waypoints as wp
     from aircraft_tpu_torch.device import resolve_device
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
@@ -124,6 +125,7 @@ def run_probe_ladder(*, num_nodes: int = 70, dt: float = 0.1,
         "ladder": rows,
         "device": _card(dev),
         "cuda_chol": cuda_chol,
+        "kernel_launches": kernel_launches(),
     }
 
 
