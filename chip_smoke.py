@@ -41,7 +41,8 @@ must pass or the script exits non-zero without a result line:
               (B=1) and on the iLQR path, _serve_step_multi with its six
               candidates on both, up to the blob's pull, and both Riccati
               sweeps on the Cholesky kernel route at B=256, N=50 on the
-              exact expansion.  A synchronising call raises there: the
+              exact expansion (the sequential one as its CUDA graph's
+              replay and eagerly).  A synchronising call raises there: the
               phase prints its traceback and the smoke fails
               ("sync audit: <what>: <error>"); a clean call prints
               "sync audit: <what>: no synchronising call";
@@ -69,7 +70,23 @@ must pass or the script exits non-zero without a result line:
               then synchronous (the same commits, bit for bit) and 8
               windows of the course flight with 6 candidates, each window
               kernel launched once per inner iteration of every window
-              solve;
+              solve; the planners: the whole mode's warm start in full
+              (MHTT along the Dubins line to the goal, N=297, window 50,
+              overlap 30, 2 x 10 on the window kernels at B=1, default
+              aero, 20 launches of each per window) and its constrained
+              solve at 1 x 2 (no kernel), then the time-optimal sweep at
+              the probe's shapes (N=70, 10 substeps, 8 candidates + the
+              nominal, 1 x 3 throughout) on the Cholesky kernel route:
+              exactly N launches per backward pass of the candidate sweep
+              and none in the B=1 solves, the kernel held against its
+              plain version on the sweep's first batch (B=8, m=9, k=16,
+              exact expansion), the result arrays' shapes checked.
+              Beside the sweeps' times, the kernel-route sequential sweep's
+              CUDA graph is held bit for bit against its eager sweep (K,
+              k, fallbacks, N launches per replay) on the fleet's
+              Gauss-Newton expansion and the exact window's, and the exact
+              window prints each sweep's float32 gains against its own
+              float64 run on the reference route;
 8. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
@@ -1034,9 +1051,14 @@ def sync_audit(ocp, us, inp):
     for mode in ("sequential", "associative"):
         sweep = lambda: ilqr.backward_pass(A, Bm, *quad, inp["reg"], mode,
                                            cuda_chol=True)
-        sweep()                                                  # warm-up
-        strict(f"riccati backward_{mode} on the kernel route (B={B}, "
-               f"N={N}, exact expansion)", sweep)
+        sweep()                          # warm-up (the sequential: capture)
+        replay = " (CUDA graph replay)" if mode == "sequential" else ""
+        strict(f"riccati backward_{mode} on the kernel route{replay} "
+               f"(B={B}, N={N}, exact expansion)", sweep)
+    strict(f"riccati backward_sequential on the kernel route, eager (B={B}, "
+           f"N={N}, exact expansion)",
+           lambda: riccati._sequential(A, Bm, *quad, inp["reg"],
+                                       cuda_chol=True))
     riccati.read_fallbacks()
 
 
@@ -1152,7 +1174,55 @@ def exact_window(ocp, z0s, us):
                                       cuda_chol=True)
              for mode in ("sequential", "associative")}
     riccati.read_fallbacks()
+    args = (A, Bm, *quad, reg)
+    hold_sweep_graph(args, f"exact window's first expansion (B={B}, N={N})")
+    # each sweep in float32 against itself in float64, on the reference
+    # route: which of them rounds its own way on this expansion
+    args64 = tuple(t.double() for t in args)
+    own = {}
+    for mode in ("sequential", "associative"):
+        K32 = ilqr.backward_pass(*args, mode)[0]
+        K64 = ilqr.backward_pass(*args64, mode)[0]
+        d = (K32.double() - K64).abs().flatten(1).amax(1)
+        r = (d / (1 + K64.abs().flatten(1).amax(1))).nan_to_num(
+            nan=math.inf)
+        own[mode] = {"max": float(r.max()), "median": float(r.median()),
+                     "scenarios_over_1e-2": int((r > 1e-2).sum())}
+    print("first inner iteration of the exact window, reference route: "
+          "each sweep's float32 K against its own float64 run, max |dK| / "
+          f"(1 + max |K|) per scenario: {json.dumps(own)}", flush=True)
+    records["float32_vs_float64"] = own
     return records, first[0], gains
+
+
+def hold_sweep_graph(args, label):
+    """The kernel-route sequential sweep's CUDA graph against its eager
+    sweep on ``args``: K, k, dv1, dv2, max |Qu| and the flags bit for bit
+    (NaN where NaN), the same fallback count, and the sweep's N Cholesky
+    launches added at the replay."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    N = args[0].shape[1]
+    reset_all_counts()
+    eager = riccati._sequential(*args, cuda_chol=True)
+    falls = riccati.read_fallbacks()
+    riccati.backward_sequential(*args, cuda_chol=True)   # captures if new
+    reset_all_counts()
+    replay = riccati.backward_sequential(*args, cuda_chol=True)
+    falls_r = riccati.read_fallbacks()
+    launches = cholesky.batched_cholesky_solve.launches
+    same = [bool(torch.equal(r.nan_to_num(), e.nan_to_num()))
+            for r, e in zip(replay, eager)]
+    print(f"{label}: the kernel-route sweep's CUDA graph against its eager "
+          f"sweep: bit-equal {same} (K, k, dv1, dv2, max |Qu|, flags); "
+          f"fallbacks {falls_r} (eager {falls}); Cholesky launches per "
+          f"replay {launches}", flush=True)
+    check(all(same) and falls_r == falls and launches == N,
+          f"{label}: the graph's sweep differs from the eager one")
+    return {"bit_equal": all(same), "fallbacks": falls}
 
 
 def hold_cholesky_indefinite(a, rhs, label):
@@ -1276,11 +1346,14 @@ def fused_breakdown(ocp, spec, z0s, us, config):
 def sweep_host_s(ocp, us, inp, reps=5):
     """Host wall time of one backward pass at the fleet's shape on each
     Quu-solve route (synchronised before and after, the median of reps,
-    the routes in turns), on the Gauss-Newton expansion of inp's point."""
+    the routes in turns), on the Gauss-Newton expansion of inp's point:
+    the kernel route as the solver takes it (a CUDA graph where the
+    package has one, its first pass capturing it), that route's eager
+    sweep where there is a graph, and the reference route."""
     import numpy as np
     import torch
 
-    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ilqr, riccati
     from aircraft_tpu_torch.solvers import ocp as ocp_mod
 
     N = us.shape[1]
@@ -1288,12 +1361,20 @@ def sweep_host_s(ocp, us, inp, reps=5):
     al = ocp_mod.init_al_state(ocp, xs[:, 0], us[:, 0], N)
     A, Bm = ilqr.linearize(ocp, xs, us)
     quad = [ilqr._san(t, 1e8) for t in ilqr.quadraticize_gn(ocp, al, xs, us)]
-    walls = {"kernel_route": [], "reference_route": []}
+    args = (A, Bm, *quad, inp["reg"])
+    routes = {"kernel_route": lambda: ilqr.backward_pass(*args,
+                                                         cuda_chol=True),
+              "reference_route": lambda: ilqr.backward_pass(
+                  *args, cuda_chol=False)}
+    if hasattr(riccati, "_sequential"):
+        routes["kernel_route_eager"] = lambda: riccati._sequential(
+            *args, cuda_chol=True)
+    walls = {name: [] for name in routes}
     for _ in range(reps + 1):
-        for name, cc in (("kernel_route", True), ("reference_route", False)):
+        for name, sweep in routes.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ilqr.backward_pass(A, Bm, *quad, inp["reg"], cuda_chol=cc)
+            sweep()
             torch.cuda.synchronize()
             walls[name].append(time.perf_counter() - t0)
     return {k: float(np.median(v[1:])) for k, v in walls.items()}
@@ -1410,6 +1491,143 @@ def serving_loop_paths():
     return launches, records
 
 
+WHOLE_WINDOW, WHOLE_OVERLAP = 50, 30
+PROBE = dict(num_nodes=70, dt_nominal=0.1, substeps=10, n_candidates=8,
+             dt_span=(0.6, 0.95))
+
+
+def planners_paths():
+    """The planners, each with every count reset just before it and read
+    just after: the whole mode's warm start in full (MHTT along the Dubins
+    line to the goal, N=297, window 50, overlap 30, 2 x 10 Gauss-Newton
+    on the window kernels at B=1, default aero, 12 step sizes), then its
+    constrained solve at 1 x 2; and the time-optimal sweep at the probe's
+    course and shapes (N=70, dt 0.1, 10 substeps, 8 candidates) with the
+    Cholesky kernel route, its tracking warm start, racing solve and
+    candidate sweep cut to 1 x 3.  Returns (launches by path, records,
+    the sweep's first Cholesky batch)."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.control import waypoints as wp
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.examples.glider_time_probe import (
+        short_course_config)
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import ilqr, riccati
+
+    launches, records = {}, {}
+    N = bench.WHOLE_HORIZON
+    params, ocp, x0, track_config = bench.whole_problem("cuda")
+    warm = SolverConfig(max_al_iters=2, max_inner_iters=10,
+                        hessian="gauss_newton")
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CountWindowSolves() as solves:
+        us0 = wp.receding_warm_start(params, track_config, num_nodes=N,
+                                     dt=bench.DT, window=WHOLE_WINDOW,
+                                     overlap=WHOLE_OVERLAP,
+                                     solver_config=warm, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "windows": solves.n,
+           "finite": bool(torch.isfinite(us0).all()),
+           "shape": list(us0.shape)}
+    print(f"whole: receding warm start N={N}, window {WHOLE_WINDOW}, overlap "
+          f"{WHOLE_OVERLAP}: " + json.dumps(rec), flush=True)
+    check(rec["finite"] and rec["shape"] == [N, 7],
+          f"whole warm start: {rec}")
+    launches["whole_warm_start"] = check_window_launches(
+        "whole warm start", solves.n,
+        warm.max_al_iters * warm.max_inner_iters)
+    records["whole_warm_start"] = rec
+
+    config = SolverConfig(max_al_iters=1, max_inner_iters=2,
+                          hessian="gauss_newton", penalty_init=10.0)
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = ilqr.solve_impl(ocp, x0[None], us0[None], config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bench.kernel_launches()
+    rec = {"wall_s_per_inner_iteration": wall / 2,
+           "goal_miss_m": bench.whole_goal_miss(sol),
+           "violation": float(sol.violation[0]), "cost": float(sol.cost[0]),
+           "finite": all(bool(torch.isfinite(t).all()) for t in (
+               sol.xs, sol.us, sol.cost, sol.violation))}
+    print(f"whole: constrained solve N={N} at 1 x 2 (reference route): "
+          + json.dumps(rec), flush=True)
+    check(rec["finite"], f"whole solve: non-finite results {rec}")
+    check(not any(counts[k] for k in ("window_backward", "window_forward",
+                                      "batched_cholesky_solve")),
+          f"whole solve launched a kernel: {counts}")
+    records["whole_solve"] = rec
+
+    course = short_course_config()
+    params = AircraftParams.from_config(course.aircraft, device="cuda")
+    cut = SolverConfig(max_al_iters=1, max_inner_iters=3)
+    first, in_sweep = [], {}
+    real_kernel, real_sweep = (riccati.batched_cholesky_solve,
+                               wp._uniform_candidate_sweep)
+
+    def capture(a, rhs):
+        if not first:
+            first.append((a.clone(), rhs.clone()))
+        return real_kernel(a, rhs)
+
+    def counted_sweep(*a, **k):
+        before = cholesky.batched_cholesky_solve.launches
+        out = real_sweep(*a, **k)
+        in_sweep["launches"] = cholesky.batched_cholesky_solve.launches - before
+        return out
+
+    reset_all_counts()
+    riccati.batched_cholesky_solve = capture
+    wp._uniform_candidate_sweep = counted_sweep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = wp.solve_time_optimal(params, course, solver_config=cut,
+                                    warm_start_config=cut, cuda_chol=True,
+                                    device="cuda", **PROBE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        riccati.batched_cholesky_solve = real_kernel
+        wp._uniform_candidate_sweep = real_sweep
+    n_chol = cholesky.batched_cholesky_solve.launches
+    n = PROBE["num_nodes"]
+    want = n * cut.max_al_iters * cut.max_inner_iters
+    C = PROBE["n_candidates"] + 1
+    rec = {"wall_s": wall, "cholesky_launches": n_chol,
+           "cholesky_launches_in_sweep": in_sweep.get("launches"),
+           "expected": want, "chol_fallbacks": riccati.read_fallbacks(),
+           "feasible": res["feasible"].tolist(),
+           "max_miss_m": res["dmins"].max(axis=1).round(2).tolist(),
+           "defects": [float(d) for d in res["defects"]],
+           "total_time": res["total_time"]}
+    print(f"time-optimal: probe course, N={n}, {PROBE['n_candidates']} "
+          "candidates + the nominal, 1 x 3, Cholesky kernel route: "
+          + json.dumps(rec), flush=True)
+    check(in_sweep.get("launches") == want and n_chol == want,
+          f"time-optimal: {n_chol} Cholesky launches, {in_sweep} in the "
+          f"sweep, expected {want} there ({n} per backward pass) and none "
+          "in the B=1 solves")
+    shapes = {k: tuple(np.shape(res[k])) for k in (
+        "feasible", "dmins", "candidate_times", "candidate_dts", "defects")}
+    check(shapes == {"feasible": (C,), "dmins": (C, 2),
+                     "candidate_times": (C,), "candidate_dts": (C,),
+                     "defects": (C,)}, f"time-optimal: shapes {shapes}")
+    launches["planners_candidate_sweep"] = n_chol
+    records["time_optimal"] = rec
+    check(bool(first), "the candidate sweep never reached the kernel")
+    return launches, records, first[0]
+
+
 def reset_all_counts():
     from aircraft_tpu_torch.kernels import cholesky, rollout, window
     from aircraft_tpu_torch.solvers import riccati
@@ -1517,6 +1735,14 @@ def main() -> int:
     host = sweep_host_s(ocp, us, inp)
     print(f"one backward pass at B={B} N={N} (host wall, s, median of 5): "
           + json.dumps(host), flush=True)
+    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+
+    al = ocp_mod.init_al_state(ocp, inp["xs"][:, 0], us[:, 0], N)
+    hold_sweep_graph((*ilqr.linearize(ocp, inp["xs"], us), *(
+        ilqr._san(t, 1e8) for t in ilqr.quadraticize_gn(
+            ocp, al, inp["xs"], us)), inp["reg"]),
+        f"fleet Gauss-Newton expansion (B={B}, N={N})")
 
     phase("path: iLQR chain on the Cholesky kernel")
     reset_all_counts()
@@ -1596,6 +1822,17 @@ def main() -> int:
     phase("path: serving loop")
     serve_launches, _ = serving_loop_paths()
 
+    phase("path: planners")
+    plan_launches, plan, (a_sweep, rhs_sweep) = planners_paths()
+    _, _, sweep_rel = hold_cholesky_indefinite(
+        a_sweep, rhs_sweep, "candidate sweep's first Cholesky batch "
+        f"B={a_sweep.shape[0]} m={a_sweep.shape[1]} k={rhs_sweep.shape[2]} "
+        "(exact expansion)")
+    check(tuple(a_sweep.shape) == (8, 9, 9)
+          and tuple(rhs_sweep.shape) == (8, 9, 16),
+          f"candidate sweep's Cholesky batch {tuple(a_sweep.shape)}, "
+          f"{tuple(rhs_sweep.shape)}")
+
     phase("report")
     # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
     #  library device ms, library wrapper ms)
@@ -1637,9 +1874,12 @@ def main() -> int:
             row[f"bound_ms_{key}"], row[f"bound_by_{key}"] = hold[f"{half}_bound"]
             row["max_abs_err"] = max(row["max_abs_err"], hold[f"{half}_err"])
         row["launches_by_path"] = {"fused_chain": row["launches"], **{
-            path: counts[row["name"]] for path, counts in serve_launches.items()}}
-    kernels[2]["launches_by_path"] = launches["batched_cholesky_by_path"]
-    kernels[2]["max_err_indefinite"] = indef_rel
+            path: counts[row["name"]] for path, counts in serve_launches.items()},
+            "whole_warm_start": plan_launches["whole_warm_start"][row["name"]]}
+    kernels[2]["launches_by_path"] = {
+        **launches["batched_cholesky_by_path"],
+        "planners_candidate_sweep": plan_launches["planners_candidate_sweep"]}
+    kernels[2]["max_err_indefinite"] = max(indef_rel, sweep_rel)
     kernels[2]["nonfinite_share_indefinite"] = indef_bad
     print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
           "lost by the pre-roll, the first launches of a trace; the timed "

@@ -17,7 +17,9 @@ kernels.  Without a card it exits non-zero and prints no times.
 
 times only one Riccati backward pass at the fleet's shape (B=256, N=50)
 on each Quu-solve route, host wall clock around a synchronised call, the
-median of 5 (chip_smoke.sweep_host_s).  Copied beside another checkout's
+median of 5 (chip_smoke.sweep_host_s): the kernel route as the solver
+runs it (its CUDA graph's replay, where the package has one, and then also
+its eager sweep) and the reference route.  Copied beside another checkout's
 package with chip_smoke.py and run there, it times that version's sweep.
 """
 

@@ -197,6 +197,47 @@ def test_cuda_chol_sweep_graph_replays_the_eager_sweep_bit_for_bit():
                 assert torch.equal(o.nan_to_num(), e.nan_to_num()), layout
 
 
+@pytest.mark.gpu
+def test_cuda_candidate_sweep_takes_the_cholesky_kernel():
+    """The time-optimal candidate sweep with cuda_chol at B=3, N=6: N
+    Cholesky launches per backward pass, and the result within the
+    kernel's hold (2e-3 (1 + |ref|)) of the reference route's.  The
+    curvature is Gauss-Newton, so every Quu is positive definite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.control import waypoints as wp
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.examples.glider_time_probe import (
+        short_course_config)
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    N = 6
+    cfg = SolverConfig(max_al_iters=1, max_inner_iters=2,
+                       hessian="gauss_newton")
+    course = short_course_config()
+    params = AircraftParams.from_config(course.aircraft, device="cuda")
+    nominal = wp.solve_waypoint_racing(params, course, num_nodes=N, dt=0.1,
+                                       substeps=10, warm_start=False,
+                                       solver_config=cfg, device="cuda")
+    dts = np.asarray([0.08, 0.1, 0.12], np.float32)
+    out = {}
+    for cuda_chol in (False, True):
+        cholesky.reset_launch_counts()
+        riccati.reset_counts()
+        out[cuda_chol] = wp._uniform_candidate_sweep(
+            params, course, nominal, 0.1, dts, num_nodes=N, substeps=10,
+            solver_config=cfg, cuda_chol=cuda_chol)
+        assert cholesky.batched_cholesky_solve.launches == (
+            2 * N if cuda_chol else 0)
+    assert riccati.read_fallbacks() == 0
+    for o, p in zip(out[True][:2], out[False][:2]):
+        assert float((o - p).abs().max()) <= 2e-3 * (1 + float(p.abs().max()))
+
+
 def _smoke(cwd: Path, env_extra: dict):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(env_extra)
