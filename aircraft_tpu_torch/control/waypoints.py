@@ -104,7 +104,7 @@ def build_waypoint_ocp(params: AircraftParams, config: TrajectoryConfig, *,
         elif sweep_time:
             dt_k = z[..., 13 + n_wp]
         else:
-            dt_k = _per_row(dt, z) if dt_rows else dt
+            dt_k = None             # the fixed dt: only the step reads it
         return x, lam, u, mu, dt_k
 
     def wp_dist2(x):
@@ -113,6 +113,8 @@ def build_waypoint_ocp(params: AircraftParams, config: TrajectoryConfig, *,
 
     def step(z, v, k):
         x, lam, u, mu, dt_k = split(z, v)
+        if dt_k is None:
+            dt_k = _per_row(dt, z) if dt_rows else dt
         parts = [step13(x, u, dt_k), lam - mu]
         if sweep_time:
             parts.append(z[..., 13 + n_wp:14 + n_wp])   # dt stays constant

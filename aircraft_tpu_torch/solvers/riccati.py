@@ -174,6 +174,8 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
     if not (cuda_chol and A.is_cuda):
         return _sequential(*args, cuda_chol=cuda_chol)
     global _unread
+    # a broadcast (stride-0) input cannot be copied into: its own copy
+    args = tuple(a.contiguous() if 0 in a.stride() else a for a in args)
     # the layout is part of the key: a library call may take another
     # algorithm, and round otherwise, on other strides
     key = tuple((a.shape, a.stride()) for a in args) + (A.dtype, A.device)

@@ -32,10 +32,12 @@ must pass or the script exits non-zero without a result line:
               the plain step within 2e-4 (1 + |ref|), the whole
               trajectory's difference printed (open-loop rounding grows);
    After the rollout phase, both window kernels are held the same way at B=1
-   and B=6 on the headline problem (N=50, MLP) and at B=6 on the course
+   and B=6 on the headline problem (N=50, MLP), at B=6 on the course
    problem (N=30, 5 substeps, default aero, the course track and knobs,
-   the AL control box), and timed in a CUDA graph of 20 calls (`ms_b1`,
-   `ms_b6`, `ms_course_b6` on the kernels line);
+   the AL control box) and at B=1 on the whole mode's warm-start window
+   (N=50, default aero, 12 step sizes), and timed in a CUDA graph of 20
+   calls (`ms_b1`, `ms_b6`, `ms_course_b6`, `ms_whole_b1` on the kernels
+   line);
 6. sync audit - under torch.cuda.set_sync_debug_mode("error"), after a
               warm-up call each: MHTT._serve_step on the window kernels
               (B=1) and on the iLQR path, _serve_step_multi with its six
@@ -657,7 +659,9 @@ def sweep_systems(ocp, z0s, us, inp):
 
     riccati.chol_solve_kernel = capture
     try:
-        riccati.backward_sequential(A, Bm, *quad, inp["reg"], cuda_chol=True)
+        # the eager sweep: the graph's first sweep would hand every system
+        # twice (the eager pass, then the capture)
+        riccati._sequential(A, Bm, *quad, inp["reg"], cuda_chol=True)
     finally:
         riccati.chol_solve_kernel = route
     check(len(captured) == N, f"sweep handed {len(captured)} solves, not {N}")
@@ -875,12 +879,21 @@ def serving_holds(op, config):
     usc = trim.control[:7].to(torch.float32)[None, None].repeat(6, Nc, 1)
     usc[1:, :, :3] += 0.02 * torch.randn((5, Nc, 3), device="cuda",
                                          generator=gen)
+    # the whole mode's warm start: one glider at the initial state, zero
+    # controls, its MHTT window (default aero, 12 step sizes)
+    whole = whole_warm_start_mhtt()
+    zw = torch.zeros((1, 14), device="cuda")
+    zw[0, :13] = torch.as_tensor(whole.config.waypoints.initial_state,
+                                 dtype=torch.float32)
     cases = (
         ("B=1 N=50 nn", op, ocp, z0[None], us0[None].contiguous(), config),
         ("B=6 N=50 nn", op, ocp, z0[None].repeat(6, 1), us6.contiguous(),
          config),
         ("course B=6 N=30 ss=5 default", course._fused_solve.operands,
          course.ocp, zc, usc.contiguous(), course.solver_config),
+        ("whole warm start B=1 N=50 default", whole._fused_solve.operands,
+         whole.ocp, zw, torch.zeros((1, whole.N, 7), device="cuda"),
+         whole.solver_config),
     )
     out = {}
     for label, op_i, ocp_i, z, us, cfg_i in cases:
@@ -1176,22 +1189,47 @@ def exact_window(ocp, z0s, us):
     riccati.read_fallbacks()
     args = (A, Bm, *quad, reg)
     hold_sweep_graph(args, f"exact window's first expansion (B={B}, N={N})")
-    # each sweep in float32 against itself in float64, on the reference
-    # route: which of them rounds its own way on this expansion
+    # each sweep in float32 against itself in float64 on the same float32
+    # expansion, on the reference route and on the kernel route, the two
+    # float64 sweeps against each other, and where Quu is indefinite
     args64 = tuple(t.double() for t in args)
-    own = {}
+
+    def rel(a, b):
+        d = (a.double() - b).abs().flatten(1).amax(1)
+        r = (d / (1 + b.abs().flatten(1).amax(1))).nan_to_num(nan=math.inf)
+        return {"max": float(r.max()), "median": float(r.median()),
+                "scenarios_over_1e-2": int((r > 1e-2).sum())}
+
+    min_eig, K64 = [], {}
+    real = riccati.chol_solve_reference
+
+    def recording(M, rhs, reg):
+        min_eig.append(torch.linalg.eigvalsh(riccati._sym(M)).amin(-1))
+        return real(M, rhs, reg)
+
+    a2 = {}
     for mode in ("sequential", "associative"):
         K32 = ilqr.backward_pass(*args, mode)[0]
-        K64 = ilqr.backward_pass(*args64, mode)[0]
-        d = (K32.double() - K64).abs().flatten(1).amax(1)
-        r = (d / (1 + K64.abs().flatten(1).amax(1))).nan_to_num(
-            nan=math.inf)
-        own[mode] = {"max": float(r.max()), "median": float(r.median()),
-                     "scenarios_over_1e-2": int((r > 1e-2).sum())}
-    print("first inner iteration of the exact window, reference route: "
-          "each sweep's float32 K against its own float64 run, max |dK| / "
-          f"(1 + max |K|) per scenario: {json.dumps(own)}", flush=True)
-    records["float32_vs_float64"] = own
+        if mode == "sequential":
+            riccati.chol_solve_reference = recording
+        try:
+            K64[mode] = ilqr.backward_pass(*args64, mode)[0]
+        finally:
+            riccati.chol_solve_reference = real
+        a2[f"{mode}_reference_route_f32_vs_f64"] = rel(K32, K64[mode])
+        a2[f"{mode}_kernel_route_f32_vs_f64"] = rel(gains[mode][0],
+                                                     K64[mode])
+    a2["associative_vs_sequential_f64"] = rel(K64["associative"],
+                                              K64["sequential"])
+    eig = torch.stack(min_eig, dim=1)
+    a2["indefinite_knots"] = int((eig < 0).sum())
+    a2["knots"] = eig.numel()
+    a2["min_eigenvalue"] = float(eig.min())
+    print("first inner iteration of the exact window, gains max |dK| / "
+          "(1 + max |K|) per scenario, float32 against float64 on the same "
+          "float32 expansion; Quu of the float64 sequential sweep: "
+          + json.dumps(a2), flush=True)
+    records["float32_vs_float64"] = a2
     return records, first[0], gains
 
 
@@ -1492,6 +1530,26 @@ def serving_loop_paths():
 
 
 WHOLE_WINDOW, WHOLE_OVERLAP = 50, 30
+WHOLE_WARM = (2, 10)         # the warm start's AL rounds x inner iterations
+
+
+def whole_warm_start_mhtt():
+    """The MHTT that ``waypoints.receding_warm_start`` builds for the whole
+    mode: window 50, overlap 30, 2 x 10 Gauss-Newton, the default-aero
+    plant along the Dubins line to the goal, on the window kernels."""
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.control.initialisation import DubinsInitialiser
+    from aircraft_tpu_torch.control.mhtt import MHTT
+
+    params, _, _, track_config = bench.whole_problem("cuda")
+    mhtt = MHTT(params, track_config, DubinsInitialiser(track_config),
+                num_nodes=WHOLE_WINDOW, dt=bench.DT, overlap=WHOLE_OVERLAP,
+                solver_config=SolverConfig(
+                    max_al_iters=WHOLE_WARM[0], max_inner_iters=WHOLE_WARM[1],
+                    hessian="gauss_newton"), device="cuda")
+    check(mhtt.fused, "the whole warm start's MHTT did not take the kernels")
+    return mhtt
 PROBE = dict(num_nodes=70, dt_nominal=0.1, substeps=10, n_candidates=8,
              dt_span=(0.6, 0.95))
 
@@ -1521,8 +1579,8 @@ def planners_paths():
     launches, records = {}, {}
     N = bench.WHOLE_HORIZON
     params, ocp, x0, track_config = bench.whole_problem("cuda")
-    warm = SolverConfig(max_al_iters=2, max_inner_iters=10,
-                        hessian="gauss_newton")
+    warm = SolverConfig(max_al_iters=WHOLE_WARM[0],
+                        max_inner_iters=WHOLE_WARM[1], hessian="gauss_newton")
     reset_all_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1866,7 +1924,8 @@ def main() -> int:
     # the window kernels at the serving shapes and their launches on the
     # serving loop's paths
     shapes = (("b1", "B=1 N=50 nn"), ("b6", "B=6 N=50 nn"),
-              ("course_b6", "course B=6 N=30 ss=5 default"))
+              ("course_b6", "course B=6 N=30 ss=5 default"),
+              ("whole_b1", "whole warm start B=1 N=50 default"))
     for row, half in ((kernels[0], "backward"), (kernels[1], "forward")):
         for key, label in shapes:
             hold = serving[label]

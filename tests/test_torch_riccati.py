@@ -273,29 +273,28 @@ def _rel(a, b):
 
 def test_exact_hessian_takes_the_sequential_sweep(monkeypatch):
     """The exact-Hessian solver uses the sequential sweep (the default of
-    ``SolverConfig``) on the reference route.  Measured over all 256
-    scenarios of the headline window's first exact expansion, float32
-    against float64 on the same float32 expansion:
+    ``SolverConfig``) on the reference route.  Why, from each sweep in
+    float32 against itself in float64 on the same float32 expansion (the
+    headline window's first exact expansion; chip_smoke.py prints the same
+    numbers over all 256 scenarios on the card):
 
     * on the reference route each sweep reproduces its own float64 run
-      (max |dK| / (1 + max |K|) ≤ 2.0e-3 sequential, ≤ 5.6e-3
-      associative): neither sweep's split from the other is its own
-      rounding;
-    * the two float64 sweeps differ in every scenario (median 0.52, up to
-      32): Quu is indefinite at 5391 of 12800 knots, and the sequential
-      sweep shifts each indefinite Quu (Gershgorin) before it forms V and
-      clamps V, as the reference's default solver does, while the
-      associative one combines the unshifted value functions.  They are
-      two different computations there and agree only on a
-      positive-definite expansion (the LQ batch);
+      within the gains' tolerance: neither sweep's split from the other is
+      its own rounding;
+    * the two float64 sweeps differ far beyond it where Quu is indefinite:
+      the sequential sweep shifts each indefinite Quu (Gershgorin) before
+      it forms V and clamps V, as the reference's default solver does,
+      while the associative one combines the unshifted value functions.
+      They are two computations there, and agree only on a
+      positive-definite expansion (the LQ batch above);
     * on the kernel route the batched-Cholesky kernel's clamped pivots
       keep some indefinite systems finite, and the fallback fires only on
-      a non-finite result: gains of 1e31–1e32 come through (associative
-      in 21 of 256 scenarios; sequential at B=1 in 3 of 10 tried, at
-      B=256 a non-finite neighbour trips the whole batch's fallback).
-      The reference's kernel and fallback have the same rule.
+      a non-finite result, so gains far from float64 come through on both
+      sweeps at a small batch (at B=256 a non-finite neighbour trips the
+      sequential sweep's whole-batch fallback at most knots).  The
+      reference's kernel and fallback have the same rule.
 
-    Held here on the two worst scenarios at B=2, N=50."""
+    Held on the two worst scenarios at B=2, N=50."""
     from aircraft_tpu_torch import bench
     from aircraft_tpu_torch.config import SolverConfig
     from aircraft_tpu_torch.solvers import ilqr

@@ -136,3 +136,9 @@ def test_per_scenario_dt_rows_equal_one_problem_per_dt(course):
         assert torch.equal(grid[i], want)
     with pytest.raises(ValueError):
         batched.step(z[0], v[0], ks)      # 8 rows do not split into 3
+    # rows that need no dt take any count (the solver probes one row)
+    one = wp.build_waypoint_ocp(pt["params"], pt["config"], dt=0.1,
+                                num_nodes=N, substeps=SUBSTEPS)
+    for name in ("ineq", "stage_cost"):
+        assert torch.equal(getattr(batched, name)(z[0, :1], v[0, :1], ks[:1]),
+                           getattr(one, name)(z[0, :1], v[0, :1], ks[:1]))
