@@ -434,13 +434,6 @@ def _batched_defects(params, config, dts, xs, us, *, num_nodes, substeps):
     return ocp_mod.rollout_defect(ocp, xs, us).cpu().numpy()
 
 
-def _take(sol: ilqr.ILQRSolution, i: int) -> ilqr.ILQRSolution:
-    """Candidate i of a batched solution, unbatched."""
-    al = (None if sol.al is None else
-          ALState(*(getattr(sol.al, f)[i] for f in ocp_mod._AL_FIELDS)))
-    return ilqr.ILQRSolution(*(t[i] for t in sol[:-1]), al=al)
-
-
 def _refine_free_time(params: AircraftParams, config: TrajectoryConfig,
                       sol_fixed: ilqr.ILQRSolution, *, num_nodes: int,
                       dt: float, substeps: int, time_mode: str,
@@ -504,7 +497,7 @@ def _refine_free_time(params: AircraftParams, config: TrajectoryConfig,
 
     if best_u is not None and dts_u[best_u] < dt:
         dt_b = float(dts_u[best_u])
-        sol_b = _take(sweep, best_u)
+        sol_b = ilqr.take(sweep, best_u)
     else:
         dt_b, sol_b = dt, sol_fixed
     us_b, xs_b = sol_b.us, sol_b.xs
@@ -622,7 +615,7 @@ def solve_time_optimal(params: AircraftParams, config: TrajectoryConfig, *,
     if best is None:
         best = int(np.argmin(dmins.max(axis=-1)))
     return {
-        "solution": _take(sols, best),
+        "solution": ilqr.take(sols, best),
         "dt": float(dts[best]),
         "total_time": float(T[best]),
         "feasible": feasible,

@@ -392,9 +392,14 @@ def solve(ocp: OCPFunctions, x0: torch.Tensor, us_init: torch.Tensor,
           ALState(*(getattr(al_init, f)[None] for f in ocp_mod._AL_FIELDS)))
     sol = solve_impl(ocp, x0[None], us_init[None], config, al,
                      one(xs_init), cuda_chol=cuda_chol)
-    return ILQRSolution(*(t[0] for t in sol[:-1]),
-                        al=ALState(*(getattr(sol.al, f)[0]
-                                     for f in ocp_mod._AL_FIELDS)))
+    return take(sol, 0)
+
+
+def take(sol: ILQRSolution, i: int) -> ILQRSolution:
+    """Scenario i of a batched solution, unbatched."""
+    al = (None if sol.al is None else
+          ALState(*(getattr(sol.al, f)[i] for f in ocp_mod._AL_FIELDS)))
+    return ILQRSolution(*(t[i] for t in sol[:-1]), al=al)
 
 
 def solve_batch(ocp: OCPFunctions, x0s: torch.Tensor, us_inits: torch.Tensor,

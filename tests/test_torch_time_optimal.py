@@ -111,10 +111,7 @@ def test_time_optimal_gates_and_appends_the_nominal(course, nominal,
 
     def racing(*a, **k):
         calls.append("racing")
-        return ilqr.ILQRSolution(*(t[-1] for t in crafted[:-1]),
-                                 al=ocp_mod.ALState(*(
-                                     getattr(crafted.al, f)[-1]
-                                     for f in ocp_mod._AL_FIELDS)))
+        return ilqr.take(crafted, -1)
 
     def sweep(params_, config_, sol_nominal, dt_nominal, dts, **k):
         calls.append(("sweep", len(dts), k["cuda_chol"]))
