@@ -76,7 +76,8 @@ must pass or the script exits non-zero without a result line:
               (MHTT along the Dubins line to the goal, N=297, window 50,
               overlap 30, 2 x 10 on the window kernels at B=1, default
               aero, 20 launches of each per window) and its constrained
-              solve at 1 x 2 (no kernel), then the time-optimal sweep at
+              solve at 1 x 2 (no kernel) with one of its inner iterations
+              timed piece by piece, then the time-optimal sweep at
               the probe's shapes (N=70, 10 substeps, 8 candidates + the
               nominal, 1 x 3 throughout) on the Cholesky kernel route:
               exactly N launches per backward pass of the candidate sweep
@@ -745,7 +746,7 @@ def hold_rollout(B, N, substeps, label, timing_reps=0):
 
 def ilqr_breakdown(ocp, z0s, us, config):
     """Host wall time of each piece of one inner iteration of the iLQR
-    solver at the fleet's shape (the second of two runs, after lazy
+    solver on (z0s, us) (the second of two runs, after lazy
     initialisation), the device's busy share over that iteration (the
     kernels' summed durations in torch.profiler's trace over the wall;
     None where the profiler saw no device time) and the number of device
@@ -1626,6 +1627,15 @@ def planners_paths():
     check(not any(counts[k] for k in ("window_backward", "window_forward",
                                       "batched_cholesky_solve")),
           f"whole solve launched a kernel: {counts}")
+    times, wall, busy, n_launch = ilqr_breakdown(ocp, x0[None], us0[None],
+                                                 config)
+    rec["inner_iteration_pieces_s"] = times
+    print(f"whole: one inner iteration at N={N}, B=1 (host wall, s): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()})
+          + f"; profiled iteration wall {wall:.3f} s, device busy share "
+          + (f"{busy:.3f}" if busy is not None else "not measured (the "
+             "profiler saw no device time)")
+          + f", {n_launch} kernel launches", flush=True)
     records["whole_solve"] = rec
 
     course = short_course_config()
