@@ -8,7 +8,11 @@ branch against the JAX package on the short two-waypoint course:
   to (a chaotic plant and two summation orders), and the same layout;
 * ``solve_time_optimal(per_candidate_warm_start=False)``: the reference
   reads a ``trim`` it never binds and raises NameError; the port raises
-  NotImplementedError instead of running a branch the reference cannot.
+  NotImplementedError instead of running a branch the reference cannot;
+* the open fault of the time probe (``slow``, ~4 min): on the card the
+  probe's nominal racing solve missed a waypoint by 133 m where the
+  reference's CPU record passes within 6.9 m.  Its warm start is what
+  decides it, and that warm start is chaotic in both packages.
 """
 
 import os
@@ -66,3 +70,54 @@ def test_legacy_shared_warm_start_raises_in_both(course):
         wp.solve_time_optimal(pt["params"], pt["config"], num_nodes=N,
                               substeps=SUBSTEPS,
                               per_candidate_warm_start=False, device="cpu")
+
+
+@pytest.mark.slow
+def test_probe_tracking_warm_start_is_chaotic_in_both_packages(course):
+    """The probe's tracking warm start (N=70, dt 0.1, 10 substeps, 1 x 30
+    from the reference's trim) gives controls far outside the surfaces'
+    ±10 deg box, and their open-loop rollout over 70 knots is decided by
+    rounding: each package's controls, rolled out through the other
+    package's step, leave the finite states within the horizon, while
+    the port's stay finite through its own.  The racing solve starts from
+    that rollout (its closest approaches place the passage impulses), so
+    which basin the nominal solve lands in is not a property of either
+    package: the card's run of the port missed by 133 m, the reference's
+    CPU record passed within 6.9 m (``data/runs/glider_time_probe.json``).
+    This holds the finding; the fix belongs to the warm start, not to the
+    port."""
+    import jax
+    import jax.numpy as jnp
+
+    from aircraft_tpu.solvers import integrators as jint
+    from aircraft_tpu.solvers.rollout import rollout as jrollout
+    from aircraft_tpu.solvers.trim import multistart_trim as jtrim
+
+    from aircraft_tpu_torch.solvers import integrators
+    from aircraft_tpu_torch.solvers.rollout import rollout
+
+    jx, pt = course
+    Np, dt, ss = 70, 0.1, 10
+    trim = np.asarray(jtrim(jx["params"], jax.random.PRNGKey(0), n_starts=32,
+                            target_airspeed=45.0).control)
+    u_ref = np.asarray(jwp.tracking_warm_start(
+        jx["params"], jx["config"], num_nodes=Np, dt=dt, substeps=ss,
+        trim_control=jnp.asarray(trim)))
+    u_port = wp.tracking_warm_start(
+        pt["params"], pt["config"], num_nodes=Np, dt=dt, substeps=ss,
+        trim_control=torch.as_tensor(trim), device="cpu").numpy()
+    for us in (u_ref, u_port):
+        assert np.abs(us[:, :3]).max() > 10.0      # beyond the ±10 deg box
+    x0 = np.asarray(jx["config"].waypoints.initial_state, np.float32)
+    jstep = jint.make_step_fn(jx["params"], substeps=ss, normalize="step")
+    tstep = integrators.make_step_fn(pt["params"], substeps=ss,
+                                     normalize="step")
+    finite = {}
+    for name, us in (("ref", u_ref), ("port", u_port)):
+        finite[name, "ref step"] = bool(np.isfinite(np.asarray(jrollout(
+            jstep, jnp.asarray(x0), jnp.asarray(us), dt))).all())
+        finite[name, "port step"] = bool(torch.isfinite(rollout(
+            tstep, torch.as_tensor(x0), torch.as_tensor(us), dt)).all())
+    assert not finite["ref", "port step"], finite
+    assert not finite["port", "ref step"], finite
+    assert finite["port", "port step"], finite
