@@ -208,7 +208,7 @@ def test_cuda_candidate_sweep_takes_the_cholesky_kernel(monkeypatch):
     singular or indefinite the kernel's clamped pivots keep X finite and
     the knot does not fall back (a rule the reference's kernel shares;
     on the Gauss-Newton expansion the two routes' states were seen 83
-    apart on the card)."""
+    apart on an H100)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import numpy as np

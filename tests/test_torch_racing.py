@@ -9,7 +9,7 @@ branch against the JAX package on the short two-waypoint course:
 * ``solve_time_optimal(per_candidate_warm_start=False)``: the reference
   reads a ``trim`` it never binds and raises NameError; the port raises
   NotImplementedError instead of running a branch the reference cannot;
-* the open fault of the time probe (``slow``, ~4 min): on the card the
+* the open fault of the time probe (``slow``, ~4 min): on an H100 the
   probe's nominal racing solve missed a waypoint by 133 m where the
   reference's CPU record passes within 6.9 m.  Its warm start is what
   decides it, and that warm start is chaotic in both packages.
@@ -82,7 +82,7 @@ def test_probe_tracking_warm_start_is_chaotic_in_both_packages(course):
     the port's stay finite through its own.  The racing solve starts from
     that rollout (its closest approaches place the passage impulses), so
     which basin the nominal solve lands in is not a property of either
-    package: the card's run of the port missed by 133 m, the reference's
+    package: a run of the port on an H100 missed by 133 m, the reference's
     CPU record passed within 6.9 m (``data/runs/glider_time_probe.json``).
     This holds the finding; the fix belongs to the warm start, not to the
     port."""
