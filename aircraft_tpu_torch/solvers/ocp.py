@@ -172,6 +172,14 @@ def gated_decay(violation: torch.Tensor, gate: float) -> torch.Tensor:
     return (violation <= gate).to(torch.float32)
 
 
+def _plus(t):
+    """max(t, 0) whose derivative at 0 is ½, as ``jnp.maximum``'s is:
+    the exact AL Hessian of a row sitting at g + λ/μ = 0 (zero multipliers
+    on a row at its bound) weighs ¼ μ ∇g∇gᵀ there, as the reference's
+    does; ``torch.clamp_min`` would give it all of μ ∇g∇gᵀ."""
+    return torch.maximum(t, torch.zeros_like(t))
+
+
 def _stage_al(ocp, lam_g, lam_h, mu, mu_row, x, u, k):
     """AL stage cost with multipliers already indexed to the knots of x;
     mu and mu_row broadcast against x's batch axes."""
@@ -179,7 +187,7 @@ def _stage_al(ocp, lam_g, lam_h, mu, mu_row, x, u, k):
     g = ocp.ineq(x, u, k)
     h = ocp.eq(x, u, k)
     mu_g = mu[..., None] * mu_row
-    gplus = torch.clamp_min(g + lam_g / mu_g, 0.0)
+    gplus = _plus(g + lam_g / mu_g)
     c = (c + 0.5 * torch.sum(mu_g * gplus * gplus, dim=-1)
          - 0.5 * torch.sum(lam_g * lam_g / mu_g, dim=-1))
     return (c + torch.sum(lam_h * h, dim=-1)
@@ -199,7 +207,7 @@ def al_terminal_cost(ocp: OCPFunctions, al: ALState, x):
     g = ocp.terminal_ineq(x)
     h = ocp.terminal_eq(x)
     mu = al.mu
-    gplus = torch.clamp_min(g + al.lam_t_ineq / mu[:, None], 0.0)
+    gplus = _plus(g + al.lam_t_ineq / mu[:, None])
     c = (c + 0.5 * mu * torch.sum(gplus * gplus, dim=-1)
          - 0.5 * torch.sum(al.lam_t_ineq ** 2, dim=-1) / mu)
     return (c + torch.sum(al.lam_t_eq * h, dim=-1)

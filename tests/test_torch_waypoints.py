@@ -7,6 +7,10 @@ inputs in both:
   adaptive mode's two forward-mode products) and the terminal rows at
   1e-5 relative;
 * ``initial_guess`` and ``_place_mu_impulses``, exactly;
+* the exact AL expansion (``ilqr.quadraticize``) at the initial guess,
+  where many rows sit at g + λ/μ = 0 (λ at 1, μ at 0), against the
+  reference's ``_quadraticize``: within 1e-4 of each block's largest
+  entry (a float32 Hessian of the stage rows);
 * the per-scenario dt: the OCP's rows at dt (B,) equal B OCPs at each dt,
   bit for bit.
 """
@@ -112,6 +116,35 @@ def test_place_mu_impulses(course):
     out = wp._place_mu_impulses(torch.as_tensor(vs), torch.as_tensor(xs),
                                 torch.as_tensor(wps), idx, 2)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_exact_expansion_at_the_initial_guess(course):
+    """At the initial guess the ordering, bound and complementarity rows sit
+    exactly at g + λ/μ = 0; the reference's ``jnp.maximum`` splits the
+    derivative there, so those rows weigh ¼ μ ∇g∇gᵀ in the Hessian."""
+    from aircraft_tpu.solvers import ilqr as jilqr
+    from aircraft_tpu.solvers import ocp as jocp
+
+    from aircraft_tpu_torch.solvers import ilqr
+    from aircraft_tpu_torch.solvers import ocp as tocp
+
+    jx, pt = course
+    jo = jwp.build_waypoint_ocp(jx["params"], jx["config"], dt=DT,
+                                num_nodes=N, substeps=SUBSTEPS)
+    to = wp.build_waypoint_ocp(pt["params"], pt["config"], dt=DT,
+                               num_nodes=N, substeps=SUBSTEPS)
+    z0, vs = wp.initial_guess(pt["config"], N, dt=DT, device="cpu")
+    xs, _ = ilqr.initial_rollout(to, z0[None], vs[None])
+    al = tocp.init_al_state(to, z0[None], vs[:1], N)
+    out = ilqr.quadraticize(to, al, xs, vs[None])
+    jal = jocp.init_al_state(jo, jnp.asarray(z0.numpy()),
+                             jnp.asarray(vs[0].numpy()), N)
+    ref = jax.jit(lambda x, u: jilqr._quadraticize(jo, jal, x, u))(
+        jnp.asarray(xs[0].numpy()), jnp.asarray(vs.numpy()))
+    for o, r in zip(out, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(o[0].detach().numpy(), r, rtol=0,
+                                   atol=1e-4 * (1.0 + np.abs(r).max()))
 
 
 def test_per_scenario_dt_rows_equal_one_problem_per_dt(course):
