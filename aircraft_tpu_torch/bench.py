@@ -128,18 +128,15 @@ def plant_best_glide(params, speeds=(24.0, 28.0, 32.0), seed=0):
     return best[0], 0.9 * best[1]
 
 
-def build_problem(device="cuda", *, coeff=None, seed=0, glide=None):
+def build_problem(device="cuda", *, coeff=None, seed=0):
     """The bench's window OCP: MLP plant, course track anchored 20 m above
     ground at its end, the course knobs with unit-scaled envelope rows and
-    the tanh control squash.  ``glide`` (v_ref, glide_ld) skips
-    ``plant_best_glide``'s three trims when the caller has them already.
-    Returns (cfg, params, ocp, track, v_ref, spec)."""
+    the tanh control squash.  Returns (cfg, params, ocp, track, v_ref, spec)."""
     dev = resolve_device(device)
     cfg = glider_config()
     coeff = load_mlp(device=dev) if coeff is None else coeff
     params = AircraftParams.from_config(cfg.aircraft, coeff=coeff, device=dev)
-    v_ref, glide_ld = (plant_best_glide(params, seed=seed) if glide is None
-                       else glide)
+    v_ref, glide_ld = plant_best_glide(params, seed=seed)
     track = course_track(cfg, v_ref=v_ref, glide_ld=glide_ld)
     z_end = float(track.track_points[:, 2].max())
     track.track_points = track.track_points.clone()

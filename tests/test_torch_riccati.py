@@ -302,8 +302,9 @@ def test_exact_hessian_takes_the_sequential_sweep(monkeypatch):
 
     assert (SolverConfig().hessian, SolverConfig().riccati) == (
         "exact", "sequential")
-    _, params, ocp, track, v_ref, _ = bench.build_problem(
-        "cpu", glide=FLEET_GLIDE)
+    monkeypatch.setattr(bench, "plant_best_glide",
+                        lambda *a, **k: FLEET_GLIDE)
+    _, params, ocp, track, v_ref, _ = bench.build_problem("cpu")
     z0s, trim = bench.fleet_states(params, track, 256, v_ref)
     z0s = z0s[list(EXACT_WORST)]
     config = bench.headline_config(1, 4)
