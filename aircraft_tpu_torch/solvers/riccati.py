@@ -20,7 +20,7 @@ semantics (``aircraft_tpu/solvers/riccati.py``):
   per solve.
 
 On the card the kernel route's sequential sweep is a CUDA graph, captured
-at the first sweep of each input layout and replayed after it: the same
+at the first sweep of each input shape and replayed after it: the same
 arithmetic without the host's cost of ~35 launches per knot.  The graph
 adds the Cholesky kernel's launches it holds to the kernel's counter at
 every replay, and the fallbacks into the same device counter.
@@ -155,7 +155,7 @@ class _Captured(NamedTuple):
     launches: int      # Cholesky-kernel launches per replay
 
 
-_graphs = {}   # the inputs' shapes and strides, dtype, device -> _Captured
+_graphs = {}   # the inputs' shapes and dtypes, device -> _Captured
 
 
 def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
@@ -165,24 +165,23 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
     A (Bz, N, n, n) and B (Bz, N, n, m) are the step Jacobians; lx, lu,
     lxx, luu, lux the stage expansion; vx (Bz, n), vxx (Bz, n, n) the
     terminal one; reg (Bz,).  ``cuda_chol`` sends each knot's solve down
-    the kernel route; on the card that sweep replays a CUDA graph of
-    itself (captured at the first sweep of its input shapes and strides,
-    which runs eagerly): the inputs are copied into the graph's buffers
-    and the outputs cloned out.  Returns K (Bz, N, m, n), k (Bz, N, m), Σ dv1,
+    the kernel route; on the card that sweep runs on contiguous copies of
+    its inputs (a library matmul may round otherwise on other strides), as
+    a CUDA graph of itself captured at the first sweep of its input shapes,
+    which runs eagerly: the inputs are copied into the graph's buffers and
+    the outputs cloned out.  Returns K (Bz, N, m, n), k (Bz, N, m), Σ dv1,
     Σ dv2, max |Qu| over the horizon and the fail flag, each (Bz,)."""
     args = (A, B, lx, lu, lxx, luu, lux, vx, vxx, reg)
     if not (cuda_chol and A.is_cuda):
         return _sequential(*args, cuda_chol=cuda_chol)
     global _unread
-    # a broadcast (stride-0) input cannot be copied into: its own copy
-    args = tuple(a.contiguous() if 0 in a.stride() else a for a in args)
-    # the layout is part of the key: a library call may take another
-    # algorithm, and round otherwise, on other strides
-    key = tuple((a.shape, a.stride()) for a in args) + (A.dtype, A.device)
+    key = tuple((a.shape, a.dtype) for a in args) + (A.device,)
     cap = _graphs.get(key)
     if cap is None:
-        out = _sequential(*args, cuda_chol=True)   # also warms every library up
-        _graphs[key] = _capture(args)
+        inputs = tuple(torch.empty(a.shape, dtype=a.dtype,
+                                   device=a.device).copy_(a) for a in args)
+        out = _sequential(*inputs, cuda_chol=True)  # also warms every library up
+        _graphs[key] = _capture(inputs)
         return out
     for buf, a in zip(cap.inputs, args):
         buf.copy_(a)
@@ -192,14 +191,11 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, vx, vxx, reg, *,
     return tuple(t.clone() for t in cap.outputs)
 
 
-def _capture(args) -> _Captured:
-    """A CUDA graph of the kernel-route sweep on copies of ``args`` laid
-    out as they are.  The capture launches nothing, so the Cholesky
-    wrapper's count taken during it is the count each replay adds, and is
-    taken back out."""
-    inputs = tuple(torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
-                                       device=a.device).copy_(a)
-                   for a in args)
+def _capture(inputs) -> _Captured:
+    """A CUDA graph of the kernel-route sweep on the static buffers
+    ``inputs``.  The capture launches nothing, so the Cholesky wrapper's
+    count taken during it is the count each replay adds, and is taken back
+    out."""
     before = cholesky.batched_cholesky_solve.launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
