@@ -65,11 +65,11 @@ must pass or the script exits non-zero without a result line:
               batch of those (indefinite) systems, and the two sweeps
               held at 2e-3 on an LQ batch at the fleet's shape; the
               kernel, chol and riccati bench modes; the serving loop: the
-              latency mode (6 reps), the serve mode pipelined and then
-              synchronous over 6 windows each (native telemetry, nothing
+              latency mode (10 reps), the serve mode pipelined and then
+              synchronous over 10 windows each (native telemetry, nothing
               dropped; the two cadences printed side by side), 5 windows
               of MHTT.run on the headline plant and budget pipelined and
-              then synchronous (the same commits, bit for bit) and 5
+              then synchronous (the same commits, bit for bit) and 8
               windows of the course flight with 6 candidates, each window
               kernel launched once per inner iteration of every window
               solve; the planners: the whole mode's warm start in full
@@ -1236,9 +1236,10 @@ def exact_window(ocp, z0s, us):
 
 def hold_sweep_graph(args, label):
     """The kernel-route sequential sweep's CUDA graph against its eager
-    sweep on ``args``: K, k, dv1, dv2, max |Qu| and the flags bit for bit
-    (NaN where NaN), the same fallback count, and the sweep's N Cholesky
-    launches added at the replay."""
+    sweep on contiguous copies of ``args`` (what the graph sweeps): K, k,
+    dv1, dv2, max |Qu| and the flags bit for bit (NaN where NaN), the same
+    fallback count, and the sweep's N Cholesky launches added at the
+    replay."""
     import torch
 
     from aircraft_tpu_torch.kernels import cholesky
@@ -1246,7 +1247,8 @@ def hold_sweep_graph(args, label):
 
     N = args[0].shape[1]
     reset_all_counts()
-    eager = riccati._sequential(*args, cuda_chol=True)
+    eager = riccati._sequential(*(a.contiguous() for a in args),
+                                cuda_chol=True)
     falls = riccati.read_fallbacks()
     riccati.backward_sequential(*args, cuda_chol=True)   # captures if new
     reset_all_counts()
@@ -1419,9 +1421,7 @@ def sweep_host_s(ocp, us, inp, reps=5):
     return {k: float(np.median(v[1:])) for k, v in walls.items()}
 
 
-SERVE_WINDOWS = 6      # cut from 10 to keep the smoke near half its limit
-LATENCY_REPS = 6
-COURSE_WINDOWS = 5
+SERVE_WINDOWS = 10
 
 
 def serving_loop_paths():
@@ -1439,7 +1439,7 @@ def serving_loop_paths():
     launches, records = {}, {}
 
     reset_all_counts()
-    lat = bench.bench_latency("cuda", reps=LATENCY_REPS)
+    lat = bench.bench_latency("cuda", reps=10)
     print(json.dumps(lat), flush=True)
     check(lat["fused_kernels"], "latency mode did not run the kernels")
     check(math.isfinite(lat["cost"]) and math.isfinite(lat["violation"]),
@@ -1514,7 +1514,7 @@ def serving_loop_paths():
     reset_all_counts()
     t0 = time.perf_counter()
     with CountWindowSolves() as solves:
-        crs = solve_full_course(glider_config(), max_windows=COURSE_WINDOWS,
+        crs = solve_full_course(glider_config(), max_windows=8,
                                 device="cuda")
     wall = time.perf_counter() - t0
     rec = {"windows": crs["windows"], "retries": crs["retries"],
@@ -1522,9 +1522,8 @@ def serving_loop_paths():
            "progress": crs["progress"], "misses": crs["misses"],
            "wall_s": wall, "window_walls_s": crs["window_walls_s"],
            "finite": bool(np.isfinite(crs["states"]).all())}
-    print(f"course, {COURSE_WINDOWS} windows: " + json.dumps(rec),
-          flush=True)
-    check(crs["windows"] == COURSE_WINDOWS and crs["abort_reason"] is None
+    print("course, 8 windows: " + json.dumps(rec), flush=True)
+    check(crs["windows"] == 8 and crs["abort_reason"] is None
           and rec["finite"], f"course: {rec}")
     launches["course"] = check_window_launches(
         "course (6 candidates per window as one batch)", solves.n, 4 * 20)
