@@ -11,8 +11,11 @@ branch against the JAX package on the short two-waypoint course:
   NotImplementedError instead of running a branch the reference cannot;
 * the open fault of the time probe (``slow``, ~4 min): on an H100 the
   probe's nominal racing solve missed a waypoint by 133 m where the
-  reference's CPU record passes within 6.9 m.  Its warm start is what
-  decides it, and that warm start is chaotic in both packages.
+  reference's CPU record passes within 6.9 m.  The warm start both
+  racing solves start from is decided by rounding inside each package
+  (one ulp flips the reference's own rollout); the port's step agrees
+  with the reference's knot by knot.  Whether the port's racing solve
+  falls short of the reference's is still open.
 """
 
 import os
@@ -77,15 +80,27 @@ def test_probe_tracking_warm_start_is_chaotic_in_both_packages(course):
     """The probe's tracking warm start (N=70, dt 0.1, 10 substeps, 1 x 30
     from the reference's trim) gives controls far outside the surfaces'
     ±10 deg box, and their open-loop rollout over 70 knots is decided by
-    rounding: each package's controls, rolled out through the other
-    package's step, leave the finite states within the horizon, while
-    the port's stay finite through its own.  The racing solve starts from
-    that rollout (its closest approaches place the passage impulses), so
-    which basin the nominal solve lands in is not a property of either
-    package: a run of the port on an H100 missed by 133 m, the reference's
-    CPU record passed within 6.9 m (``data/runs/glider_time_probe.json``).
-    This holds the finding; the fix belongs to the warm start, not to the
-    port."""
+    rounding, inside each package on its own:
+
+    * in the reference alone, one ulp of one control at the first knot
+      turns its rollout of its own controls from one that leaves the
+      finite states into one that stays finite to the end, and the same
+      rollout in float64 leaves them at another knot than in float32;
+    * in each package, that one-ulp change grows to more than 1e-3 of the
+      state by knot 38;
+    * the port's step agrees with the reference's, from the reference's
+      own states, at every knot before they leave the finite states,
+      within 2e-4 relative (the tolerance of the rk4 rows);
+    * each package's controls, rolled out through the other package's
+      step, leave the finite states within the horizon, while the port's
+      stay finite through its own.
+
+    The racing solve starts from that rollout (its closest approaches, or
+    its first non-finite knot, place the passage impulses), so its seed is
+    not a property of either package.  A run of the port on an H100
+    missed a waypoint by 133 m where the reference's CPU record passes
+    within 6.9 m (``data/runs/glider_time_probe.json``); whether the
+    port's racing solve itself falls short is not settled by this."""
     import jax
     import jax.numpy as jnp
 
@@ -112,12 +127,57 @@ def test_probe_tracking_warm_start_is_chaotic_in_both_packages(course):
     jstep = jint.make_step_fn(jx["params"], substeps=ss, normalize="step")
     tstep = integrators.make_step_fn(pt["params"], substeps=ss,
                                      normalize="step")
+
+    def ref_roll(us, step=jstep, dtype=jnp.float32):
+        return np.asarray(jrollout(step, jnp.asarray(x0, dtype),
+                                   jnp.asarray(us, dtype), dt))
+
+    def port_roll(us):
+        return rollout(tstep, torch.as_tensor(x0), torch.as_tensor(us),
+                       dt).numpy()
+
+    def first_bad(xs):
+        fin = np.isfinite(xs).all(axis=1)
+        return None if fin.all() else int(np.argmin(fin))
+
+    def gap(a, b, k):
+        return np.abs(a[k] - b[k]).max() / (1.0 + np.abs(a[k]).max())
+
+    # one ulp of the first knot's elevator, inside each package
+    u_ulp = u_ref.copy()
+    u_ulp[0, 1] = np.nextafter(u_ulp[0, 1], np.float32(np.inf))
+    ref_xs, ref_ulp = ref_roll(u_ref), ref_roll(u_ulp)
+    port_xs, port_ulp = port_roll(u_ref), port_roll(u_ulp)
+    assert first_bad(ref_xs) is not None and first_bad(ref_ulp) is None, (
+        first_bad(ref_xs), first_bad(ref_ulp))
+    assert gap(ref_xs, ref_ulp, 38) > 1e-3, gap(ref_xs, ref_ulp, 38)
+    assert gap(port_xs, port_ulp, 38) > 1e-3, gap(port_xs, port_ulp, 38)
+
+    # the reference in float64: the same controls leave at another knot
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64)
+            if isinstance(a, (jax.Array, np.ndarray))
+            and jnp.issubdtype(a.dtype, jnp.floating) else a, jx["params"])
+        ref64 = ref_roll(u_ref, jint.make_step_fn(p64, substeps=ss,
+                                                  normalize="step"),
+                         jnp.float64)
+    assert ref64.dtype == np.float64
+    assert first_bad(ref64) != first_bad(ref_xs), first_bad(ref64)
+
+    # the port's step from the reference's own states, knot by knot
+    jstep_jit = jax.jit(jstep)
+    for k in range(first_bad(ref_xs) - 1):
+        a = np.asarray(jstep_jit(jnp.asarray(ref_xs[k]), jnp.asarray(u_ref[k]),
+                                 jnp.float32(dt)))
+        b = tstep(torch.as_tensor(ref_xs[k]), torch.as_tensor(u_ref[k]),
+                  torch.tensor(dt, dtype=torch.float32)).numpy()
+        assert np.abs(a - b).max() <= 2e-4 * (1.0 + np.abs(a).max()), k
+
     finite = {}
     for name, us in (("ref", u_ref), ("port", u_port)):
-        finite[name, "ref step"] = bool(np.isfinite(np.asarray(jrollout(
-            jstep, jnp.asarray(x0), jnp.asarray(us), dt))).all())
-        finite[name, "port step"] = bool(torch.isfinite(rollout(
-            tstep, torch.as_tensor(x0), torch.as_tensor(us), dt)).all())
+        finite[name, "ref step"] = bool(np.isfinite(ref_roll(us)).all())
+        finite[name, "port step"] = bool(np.isfinite(port_roll(us)).all())
     assert not finite["ref", "port step"], finite
     assert not finite["port", "ref step"], finite
     assert finite["port", "port step"], finite
