@@ -146,18 +146,19 @@ def build_aircraft_ocp(params: AircraftParams, config: TrajectoryConfig, *,
                        terminal_ineq: Optional[Callable] = None,
                        terminal_eq: Optional[Callable] = None
                        ) -> OCPFunctions:
-    """The glider OCP: RK4 steps of ``dt`` (``substeps`` each) under the
-    reference envelope, with the caller's costs.
+    """The glider OCP: steps of ``dt`` (``substeps`` each; RK4, or
+    implicit Euler with ``integration='implicit'``) under the reference
+    envelope, with the caller's costs.
 
     ``quaternion`` follows the reference's option axis:
       'integration'  renormalise inside the integrator (the default)
+      'expmap'       the exact exponential-map quaternion update
       'constraint'   leave the norm to the equality |q|² − 1 = 0
       'baumgarte'    the Baumgarte-stabilised norm equality
                      2αφ̇ + β²φ = 0, φ = |q|² − 1, α = β = 2
       ''             nothing (drift allowed)
-    'expmap' and ``integration='implicit'`` are not ported and raise
-    NotImplementedError.  ``wind`` (3,) enters the plant's derivative;
-    ``extra_ineq`` rows follow the envelope's."""
+    ``wind`` (3,) enters the plant's derivative; ``extra_ineq`` rows
+    follow the envelope's."""
     if quaternion not in QUATERNION_NORMALIZE:
         raise ValueError(f"quaternion={quaternion!r}: expected one of "
                          f"{sorted(QUATERNION_NORMALIZE)}")

@@ -1,8 +1,8 @@
-"""Post-mortem of one window solve, strictly off the solve's hot path:
-the constraint-description registry, ``diagnose`` and
-``format_diagnosis`` (what ``MHTT.diagnose_window`` reports).  The
-reference module's timers, logger, metrics and Jacobian checks are not
-ported yet."""
+"""Post-mortem of solves, strictly off the solve's hot path: the summary
+metrics of a solution (``solver_metrics``), the constraint-description
+registry, ``diagnose`` and ``format_diagnosis`` (what
+``MHTT.diagnose_window`` reports).  The reference module's timers,
+logger and Jacobian checks are not ported yet."""
 
 from __future__ import annotations
 
@@ -13,6 +13,32 @@ import numpy as np
 import torch
 
 from aircraft_tpu_torch.config import RHO
+
+
+def solver_metrics(sol, wall_time: Optional[float] = None) -> dict:
+    """Summary dict of an ``ILQRSolution``, single or batched (the
+    reference's keys); each field is read to the host once."""
+    host = lambda t: np.asarray(t.detach().cpu().numpy()
+                                if isinstance(t, torch.Tensor) else t)
+    cost, viol, conv, iters, gnorm = (host(t) for t in (
+        sol.cost, sol.violation, sol.converged, sol.iterations,
+        sol.grad_norm))
+    finite = np.isfinite(cost)
+    m = {
+        "batched": bool(cost.ndim > 0 and cost.size > 1),
+        "n_scenarios": int(cost.size),
+        "success_rate": float(np.mean(conv)),
+        "final_objective": (float(np.mean(cost[finite])) if finite.any()
+                            else float("nan")),
+        "primal_inf": float(np.max(viol)),
+        "iterations": float(np.mean(iters)),
+        "grad_norm": float(np.max(gnorm)),
+    }
+    if wall_time is not None:
+        m["total_time"] = wall_time
+        m["solves_per_s"] = (cost.size / wall_time if wall_time > 0
+                             else float("inf"))
+    return m
 
 
 @dataclass

@@ -9,6 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from aircraft_tpu_torch.ops.elementwise import clip, scalar_like
+
+
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The identity rotation [0, 0, 0, 1]."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
 
 def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 ⊗ q2."""
@@ -25,6 +32,11 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 def conjugate(q: torch.Tensor) -> torch.Tensor:
     """[-x, -y, -z, w]."""
     return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def inverse(q: torch.Tensor) -> torch.Tensor:
+    """conj(q) / |q|² (the conjugate for a unit q)."""
+    return conjugate(q) / torch.sum(q * q, dim=-1, keepdim=True)
 
 
 def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -47,11 +59,36 @@ def rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return rotate(conjugate(q), v)
 
 
+def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """The 3x3 R with R @ v == rotate(q, v)."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
 def derivative(q: torch.Tensor, omega_body: torch.Tensor) -> torch.Tensor:
     """q̇ = ½ q ⊗ (ω, 0) with ω in the body frame."""
     omega_q = torch.cat([omega_body, torch.zeros_like(omega_body[..., :1])],
                         dim=-1)
     return 0.5 * multiply(q, omega_q)
+
+
+def from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """The unit quaternion of a rotation by ``angle`` radians about the
+    unit ``axis``; ``angle`` carries axis's batch axes, or one more
+    trailing axis of size 1."""
+    angle = scalar_like(axis, angle)
+    half = 0.5 * (angle[..., None] if angle.dim() == axis.dim() - 1
+                  else angle)
+    half = half.expand(axis[..., :1].shape)
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
 
 
 def expmap(phi: torch.Tensor) -> torch.Tensor:
@@ -81,6 +118,25 @@ def logmap(q: torch.Tensor) -> torch.Tensor:
     return k * vec
 
 
+def integrate_expmap(q: torch.Tensor, omega_body: torch.Tensor,
+                     dt) -> torch.Tensor:
+    """q⁺ = exp(ω dt) ⊗ q, norm-preserving by construction; ``dt`` a
+    number, a 0-dim tensor or one with omega's batch axes."""
+    dt = scalar_like(omega_body, dt)
+    if dt.dim() < omega_body.dim():
+        dt = dt[..., None]
+    return multiply(expmap(omega_body * dt), q)
+
+
+def to_euler(q: torch.Tensor) -> torch.Tensor:
+    """ZYX Euler angles [phi, theta, psi] of an xyzw quaternion."""
+    x, y, z, w = q.unbind(-1)
+    phi = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    theta = torch.asin(clip(2 * (w * y - z * x), -1.0, 1.0))
+    psi = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return torch.stack([phi, theta, psi], dim=-1)
+
+
 def from_euler(phi, theta, psi) -> torch.Tensor:
     """xyzw quaternion from ZYX Euler angles (roll, pitch, yaw)."""
     hphi, hth, hpsi = 0.5 * phi, 0.5 * theta, 0.5 * psi
@@ -93,3 +149,19 @@ def from_euler(phi, theta, psi) -> torch.Tensor:
         cphi * cth * spsi - sphi * sth * cpsi,
         cphi * cth * cpsi + sphi * sth * spsi,
     ], dim=-1)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions, a lerp
+    where they are nearly parallel."""
+    t = scalar_like(q0, t)
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.abs(dot)
+    theta = torch.acos(clip(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-5
+    denom = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / denom)
+    w1 = torch.where(near, t, torch.sin(t * theta) / denom)
+    return normalize(w0 * q0 + w1 * q1)

@@ -1,7 +1,8 @@
 """Trajectory snapshots: ``TrajectoryData``, what a flight log loads into
-(``native/telemetry.flight_log_to_trajectory``).  The reference module's
-state/control containers, aero conversions and checkpoint IO are not
-ported yet."""
+(``native/telemetry.flight_log_to_trajectory``) and what the ablation
+saves per case, with its npz round trip.  The reference module's
+state/control containers, aero conversions and HDF5 checkpoints are not
+ported yet (the HDF5 pair needs ``h5py``)."""
 
 from __future__ import annotations
 
@@ -19,3 +20,17 @@ class TrajectoryData:
     control: Optional[np.ndarray] = None   # (T, m)
     time: Optional[np.ndarray] = None      # (T,) or scalar horizon time
     lam: Optional[np.ndarray] = None       # track progress, if any
+
+    def save_npz(self, path) -> None:
+        data = {"state": self.state}
+        for k in ("control", "time", "lam"):
+            v = getattr(self, k)
+            if v is not None:
+                data[k] = np.asarray(v)
+        np.savez_compressed(path, **data)
+
+    @classmethod
+    def load_npz(cls, path) -> "TrajectoryData":
+        with np.load(path) as d:
+            return cls(**{k: d[k] for k in ("state", "control", "time", "lam")
+                          if k in d.files})

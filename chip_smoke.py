@@ -89,7 +89,20 @@ must pass or the script exits non-zero without a result line:
               k, fallbacks, N launches per replay) on the fleet's
               Gauss-Newton expansion and the exact window's, and the exact
               window prints each sweep's float32 gains against its own
-              float64 run on the reference route;
+              float64 run on the reference route; and the plant breadth
+              (no kernel of the port runs on it): each coefficient model
+              (linear and polynomial from data/networks, the MLP, a
+              seeded mini-MLP, the default, the MLP's Taylor expansion
+              about the fleet's trim) held on the card against the same
+              code on the CPU at the 256 fleet states, its state
+              derivative and its step's Jacobian within 2e-4 (1 + |ref|);
+              the exponential-map step (10 substeps) over 40 knots at
+              B=256, |q| within 1e-5 of 1; the implicit-Euler step (1 and
+              5 substeps) and its linearisation at B=256, finite, under
+              the sync audit; five rows of the ablation grid at its full
+              width (N=40, glider, trim warm start) cut to 1 x 2, none
+              carrying an error; one MHTT window of the polynomial plant
+              at the headline window (N=50, B=1): iLQR, no window kernel;
 8. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
@@ -970,16 +983,17 @@ def check_window_launches(label, solves, per_solve):
                                             "window_forward")}
 
 
-def headline_mhtt(solver_config, fused=None, device="cuda"):
-    """MHTT on the headline plant, track and knobs (no tanh squash: MHTT
-    has no squash knob, as in the reference), and the fleet's first
-    glider at s = 0.1 with its trim controls: (mhtt, z0 (1, 14), us0
-    (N, 7))."""
+def headline_mhtt(solver_config, fused=None, device="cuda", coeff=None):
+    """MHTT on the headline plant (or on ``coeff``'s), track and knobs (no
+    tanh squash: MHTT has no squash knob, as in the reference), and the
+    fleet's first glider at s = 0.1 with its trim controls: (mhtt, z0
+    (1, 14), us0 (N, 7))."""
     from aircraft_tpu_torch import bench
     from aircraft_tpu_torch.control.course import COURSE_OCP_KNOBS
     from aircraft_tpu_torch.control.mhtt import MHTT
 
-    cfg, params, _, track, v_ref, _ = bench.build_problem(device)
+    cfg, params, _, track, v_ref, _ = bench.build_problem(device,
+                                                          coeff=coeff)
     knobs = dict(COURSE_OCP_KNOBS)
     knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
                                    "unit_scales": True}
@@ -1698,6 +1712,164 @@ def planners_paths():
     return launches, records, first[0]
 
 
+# the plant-breadth phase: (model, quaternion, substeps, integration) rows
+# of the ablation grid at its full width (glider, N=40, dt=0.05, goal
+# +[120, 20, 10] m, trim warm start), cut to 1 x 2 iterations
+PLANT_ROWS = (("linear", "integration", 1, "explicit"),
+              ("poly", "integration", 1, "explicit"),
+              ("nn", "expmap", 5, "explicit"),
+              ("default", "integration", 1, "implicit"),
+              ("default", "expmap", 1, "implicit"))
+PLANT_TOL = 2e-4     # the rk4 rows' tolerance; the linearisation's too
+
+
+def plant_models(params, trim):
+    """The six coefficient models built once on the CPU: the fitted
+    linear and polynomial artifacts, the trained MLP, a mini-MLP drawn
+    from a seeded generator, the default, and the MLP's Taylor expansion
+    about the fleet's trim (its model inputs)."""
+    import torch
+
+    from aircraft_tpu_torch.dynamics import aircraft as ac
+    from aircraft_tpu_torch.dynamics import coefficients as co
+
+    nn = co.load_mlp(device="cpu")
+    cpu = params.to("cpu")
+    aero = ac.aero_state(cpu, trim.state.cpu(), trim.control[:7].cpu())
+    anchor = co.model_inputs(aero, trim.control[0].cpu(),
+                             trim.control[1].cpu())
+    return {"default": co.DefaultCoeffParams(),
+            "linear": co.default_artifact_coeff("linear", device="cpu"),
+            "poly": co.default_artifact_coeff("poly", device="cpu"),
+            "nn": nn,
+            "nn_mini": co.MiniMLPCoeffParams.init(
+                torch.Generator().manual_seed(0), device="cpu"),
+            "nn_taylor": co.TaylorCoeffParams.from_model(nn, anchor)}
+
+
+def plant_breadth(device="cuda"):
+    """Every coefficient model on the card held against the same code on
+    the CPU at the 256 fleet states; the exponential-map and implicit
+    steps at B=256 (the implicit step and its linearisation with no host
+    sync); the ablation rows of PLANT_ROWS; one MHTT window of the
+    polynomial plant at the headline window (no window kernel).  Returns
+    (records, launches of the polynomial window)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import ablation, bench
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.control.mhtt import finish_pull
+    from aircraft_tpu_torch.dynamics import aircraft as ac
+    from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
+    from aircraft_tpu_torch.solvers import ilqr, integrators
+    from aircraft_tpu_torch.solvers.rollout import rollout
+
+    records = {}
+    cuda = device != "cpu"
+    _, params, _, track, v_ref, _ = bench.build_problem(device)
+    z0s, trim = bench.fleet_states(params, track, 256, v_ref)
+    x = z0s[:, :13].contiguous()
+    u = trim.control[:7].expand(x.shape[0], 7).contiguous()
+    models = plant_models(params, trim)
+    for name, cp in models.items():
+        cpu = dataclasses.replace(params.to("cpu"), coeff=cp)
+        dev = cpu.to(device)
+        ref_f = ac.state_derivative(cpu, x.cpu(), u.cpu())
+        f = ac.state_derivative(dev, x, u).cpu()
+        steps = [integrators.make_step_fn(p, normalize="step")
+                 for p in (cpu, dev)]
+        ref_J = batched_jacfwd(lambda a, b: steps[0](a, b, bench.DT),
+                               x.cpu(), u.cpu())
+        J = batched_jacfwd(lambda a, b: steps[1](a, b, bench.DT), x, u).cpu()
+        rec = {"derivative_rel_err": rel_err(f, ref_f),
+               "jacobian_rel_err": rel_err(J, ref_J),
+               "finite": bool(torch.isfinite(J).all()
+                              and torch.isfinite(f).all())}
+        print(f"plant: {name} aero at the {x.shape[0]} fleet states, card "
+              f"against CPU: " + json.dumps(rec), flush=True)
+        check(rec["finite"] and close(f, ref_f, PLANT_TOL)[0]
+              and close(J, ref_J, PLANT_TOL)[0],
+              f"plant: {name}: card and CPU differ: {rec}")
+        records[f"model_{name}"] = rec
+
+    us40 = u[:, None].expand(x.shape[0], 40, 7)
+    expmap = integrators.make_step_fn(params, substeps=10, normalize="expmap")
+    xs = rollout(expmap, x, us40, bench.DT)
+    drift = float((torch.linalg.norm(xs[..., 6:10], dim=-1) - 1.0).abs()
+                  .max())
+    rec = {"finite": bool(torch.isfinite(xs).all()), "quaternion_drift": drift}
+    print(f"plant: expmap step, 10 substeps, B={x.shape[0]}, 40 knots: "
+          + json.dumps(rec), flush=True)
+    check(rec["finite"] and drift <= 1e-5, f"plant: expmap rollout {rec}")
+    records["expmap_rollout"] = rec
+    for ss in (1, 5):
+        step = integrators.make_step_fn(params, substeps=ss,
+                                        normalize="step",
+                                        integration="implicit")
+        lin = lambda: batched_jacfwd(lambda a, b: step(a, b, bench.DT), x, u)
+        step(x, u, bench.DT)
+        lin()                                       # warm-up
+        what = f"implicit step, {ss} substep(s), B={x.shape[0]}"
+        run = (lambda w, fn: strict(w, fn)) if cuda else (
+            lambda w, fn: fn())
+        xn = run(what, lambda: step(x, u, bench.DT))
+        J = run(f"linearisation of the {what}", lin)
+        rec = {"finite": bool(torch.isfinite(xn).all()
+                              and torch.isfinite(J).all())}
+        check(rec["finite"], f"plant: {what}: non-finite")
+        records[f"implicit_ss{ss}"] = rec
+
+    cut = SolverConfig(max_al_iters=1, max_inner_iters=2, constraint_tol=0.1)
+    rows = []
+    for model, qmode, ss, integ in PLANT_ROWS:
+        row = ablation.run_ablation(
+            models=(model,), quaternion_modes=(qmode,), substeps_grid=(ss,),
+            integration_modes=(integ,), num_nodes=40, dt=0.05,
+            solver_config=cut, device=device)[0]
+        label = f"{model}/{qmode}/ss{ss}/{integ}"
+        print(f"plant: ablation row {label}: wall {row.get('wall_s')} s",
+              flush=True)
+        check("error" not in row, f"plant: ablation row {label}: "
+              f"{row.get('error')}")
+        check(np.isfinite(row["final_objective"]),
+              f"plant: ablation row {label}: objective "
+              f"{row['final_objective']}")
+        rows.append({"row": label, **{k: row[k] for k in (
+            "wall_s", "final_objective", "primal_inf", "goal_distance",
+            "quaternion_drift", "feasible")}})
+    records["ablation_rows"] = rows
+
+    poly = models["poly"].to(device)
+    m, z0, us0 = headline_mhtt(SolverConfig(
+        max_al_iters=1, max_inner_iters=2, hessian="gauss_newton"),
+        device=device, coeff=poly)
+    check(not m.fused, "the polynomial plant's MHTT took the window kernels")
+    calls = []
+    real = ilqr.solve_batch
+    ilqr.solve_batch = lambda *a, **k: calls.append(1) or real(*a, **k)
+    reset_all_counts()
+    try:
+        t0 = time.perf_counter()
+        z, _, _, pull = m._serve_step(z0[0], us0, m._al0)
+        finish_pull(pull)
+        wall = time.perf_counter() - t0
+    finally:
+        ilqr.solve_batch = real
+    counts = bench.kernel_launches()
+    launches = {k: counts[k] for k in ("window_backward", "window_forward")}
+    rec = {"wall_s": wall, "ilqr_solve_batch_calls": len(calls),
+           "finite": bool(torch.isfinite(z).all()), **launches}
+    print("plant: MHTT window of the polynomial plant, N=50, B=1, 1 x 2: "
+          + json.dumps(rec), flush=True)
+    check(calls == [1] and rec["finite"] and not any(launches.values()),
+          f"plant: polynomial MHTT window {rec}")
+    records["poly_mhtt_window"] = rec
+    return records, launches
+
+
 def reset_all_counts():
     from aircraft_tpu_torch.kernels import cholesky, rollout, window
     from aircraft_tpu_torch.solvers import riccati
@@ -1903,6 +2075,11 @@ def main() -> int:
           f"candidate sweep's Cholesky batch {tuple(a_sweep.shape)}, "
           f"{tuple(rhs_sweep.shape)}")
 
+    phase("path: plant breadth")
+    t0 = time.perf_counter()
+    plant, plant_launches = plant_breadth()
+    print(f"plant breadth: {time.perf_counter() - t0:.1f} s", flush=True)
+
     phase("report")
     # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
     #  library device ms, library wrapper ms)
@@ -1946,7 +2123,8 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], hold[f"{half}_err"])
         row["launches_by_path"] = {"fused_chain": row["launches"], **{
             path: counts[row["name"]] for path, counts in serve_launches.items()},
-            "whole_warm_start": plan_launches["whole_warm_start"][row["name"]]}
+            "whole_warm_start": plan_launches["whole_warm_start"][row["name"]],
+            "plant_breadth_poly_window": plant_launches[row["name"]]}
     kernels[2]["launches_by_path"] = {
         **launches["batched_cholesky_by_path"],
         "planners_candidate_sweep": plan_launches["planners_candidate_sweep"]}

@@ -65,16 +65,36 @@ def _states(seed=0):
 
 @pytest.mark.parametrize("name", ["multiply", "conjugate", "normalize",
                                   "rotate", "rotate_inv", "derivative",
-                                  "expmap"])
+                                  "expmap", "inverse", "to_rotation_matrix",
+                                  "from_axis_angle", "integrate_expmap",
+                                  "to_euler", "slerp"])
 def test_quaternion_op(name):
     rng = np.random.default_rng(1)
     q1, q2 = _quats(rng, B), _quats(rng, B)
     v = rng.standard_normal((B, 3)).astype(np.float32)
+    axis = v / np.linalg.norm(v, axis=1, keepdims=True)
+    t = rng.uniform(0.0, 1.0, (B, 1)).astype(np.float32)
+    q_near = q1 + 1e-7 * q2            # slerp's lerp branch on some rows
+    q_near[B // 2:] = q2[B // 2:]
     args = {"multiply": (q1, q2), "conjugate": (q1,), "normalize": (2.0 * q1,),
             "rotate": (q1, v), "rotate_inv": (q1, v), "derivative": (q1, v),
-            "expmap": (0.3 * v,)}[name]
+            "expmap": (0.3 * v,), "inverse": (2.0 * q1,),
+            "to_rotation_matrix": (q1,),
+            "from_axis_angle": (axis, 3.0 * t[:, 0]),
+            "integrate_expmap": (q1, v, np.float32(0.05)),
+            "to_euler": (q1,), "slerp": (q1, q_near, t)}[name]
     _close(getattr(tq, name)(*map(torch.as_tensor, args)),
            getattr(jq, name)(*map(jnp.asarray, args)))
+
+
+def test_quaternion_identity_and_per_row_step():
+    """``identity``, and ``integrate_expmap`` with a dt per row."""
+    rng = np.random.default_rng(2)
+    q, w = _quats(rng, B), rng.standard_normal((B, 3)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, B).astype(np.float32)
+    _close(tq.identity(), jq.identity())
+    _close(tq.integrate_expmap(*map(torch.as_tensor, (q, w, dt))),
+           jq.integrate_expmap(*map(jnp.asarray, (q, w, dt))))
 
 
 @pytest.fixture(scope="module", params=["nn", "default"])

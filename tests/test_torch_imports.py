@@ -75,7 +75,8 @@ def test_kernel_sources_ship_with_the_package():
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
-    from aircraft_tpu_torch import bench, device
+    from aircraft_tpu_torch import ablation, bench, device
+    from aircraft_tpu_torch.dynamics import coefficients as co
     from aircraft_tpu_torch.config import glider_config
     from aircraft_tpu_torch.control import aircraft as ac
     from aircraft_tpu_torch.control import waypoints as wp
@@ -116,7 +117,15 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: wp.solve_waypoint_racing(params, cfg),
                  lambda: wp.solve_time_optimal(params, cfg),
                  lambda: wp.solve_waypoint_legs(params, cfg),
-                 lambda: glider_time_probe.run_probe_ladder()):
+                 lambda: glider_time_probe.run_probe_ladder(),
+                 lambda: ablation.run_ablation(models=("default",)),
+                 lambda: ablation.run_time_mode_case(cfg, time_mode="fixed"),
+                 lambda: ablation.main(["--quick"]),
+                 lambda: co.default_artifact_coeff("poly"),
+                 lambda: co.load_coefficient_model(
+                     "linear", co.NETWORKPATH / "linearised.csv"),
+                 lambda: co.MLPCoeffParams.init(torch.Generator()),
+                 lambda: co.default_nn_coeff()):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"

@@ -11,7 +11,8 @@ CPU as well, so these tests audit, after one warm-up call:
   the iLQR path (``fused=False``), and ``_serve_step_multi`` with its six
   candidates;
 * ``riccati.backward_sequential`` and ``backward_associative`` on the
-  kernel route (``cuda_chol=True``) with their fallback rules.
+  kernel route (``cuda_chol=True``) with their fallback rules;
+* the implicit-Euler step and its linearisation.
 
 Flagged: ``torch.tensor`` / ``torch.as_tensor`` / ``Tensor.new_tensor``
 given host data with a device; ``Tensor.__bool__``, ``__float__``,
@@ -147,3 +148,23 @@ def test_kernel_route_sweep_makes_no_host_sync(sweep):
     assert found == []
     assert bool(torch.isfinite(out[0]).all())
     assert riccati.read_fallbacks() == 0
+
+
+def test_implicit_step_and_its_linearisation_make_no_host_sync(course):
+    """The implicit-Euler step (its Newton solve runs ``solve_ex`` with its
+    info left unread) and its forward-mode linearisation through the
+    Newton iterations."""
+    from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
+    from aircraft_tpu_torch.solvers import integrators
+
+    _, params, _, z0 = course
+    step = integrators.make_step_fn(params, substeps=2, normalize="expmap",
+                                    integration="implicit")
+    x = z0[:13].expand(4, 13).contiguous()
+    u = torch.zeros(4, 7)
+    step(x, u, 0.05)                  # warm-up
+    out, found = audit(step, x, u, 0.05)
+    assert found == []
+    J, found = audit(batched_jacfwd, lambda a, b: step(a, b, 0.05), x, u)
+    assert found == []
+    assert bool(torch.isfinite(out).all()) and J.shape == (4, 13, 20)

@@ -8,8 +8,10 @@ numpy inputs:
 * ``waypoints.receding_warm_start`` (N=12, window 6, overlap 3, 1 x 1
   Gauss-Newton) through its first window: the reference's ``MHTT`` window
   solve from the same start, its committed controls at 2e-4;
-* the port alone: ``ilqr.solve`` is ``solve_impl`` on a batch of one, the
-  unported integrator options raise, ``python -m aircraft_tpu_torch.bench
+* the exponential map and implicit Euler through ``build_aircraft_ocp``
+  (they raised before the plant breadth was ported): the step at 2e-4;
+* the port alone: ``ilqr.solve`` is ``solve_impl`` on a batch of one,
+  ``python -m aircraft_tpu_torch.bench
   --mode whole`` prints the reference's keys on the CPU at a tiny size,
   and the new entry points raise without a card when not asked for the
   CPU.
@@ -128,11 +130,21 @@ def test_build_aircraft_ocp(plant, quaternion, wind):
 @pytest.mark.parametrize("kw", [dict(quaternion="expmap"),
                                 dict(integration="implicit")])
 def test_unported_integrator_options_raise(plant, kw):
-    _, pp = plant
+    """The two options that raised NotImplementedError before the plant
+    breadth was ported: each now builds the reference's OCP, its step
+    held at 2e-4."""
+    jp, pp = plant
+    js, jt = jac.goal_cost(jnp.asarray(GOAL))
     ts, tt = tac.goal_cost(GOAL, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tac.build_aircraft_ocp(pp, glider_config(), dt=DT, stage_cost=ts,
-                               terminal_cost=tt, **kw)
+    jo = jac.build_aircraft_ocp(jp, jax_glider_config(), dt=DT,
+                                stage_cost=js, terminal_cost=jt, **kw)
+    to = tac.build_aircraft_ocp(pp, glider_config(), dt=DT, stage_cost=ts,
+                                terminal_cost=tt, **kw)
+    xs, us = _inputs(4)
+    k = torch.zeros(B, dtype=torch.int64)
+    _close(to.step(torch.as_tensor(xs), torch.as_tensor(us), k),
+           jax.jit(jax.vmap(jo.step))(xs, us, jnp.zeros(B, jnp.int32)),
+           STEP_TOL)
 
 
 def test_rollout_defect(plant):
