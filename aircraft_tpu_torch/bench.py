@@ -1,5 +1,5 @@
 """The port's bench: the serving-chain headline, the single-aircraft
-serving modes and two kernel modes.
+serving modes, the kernel modes and the fleet-scale modes.
 
 ``--mode headline`` (the default): batched N=50 MHTT window solves of a
 fleet of gliders spread along the course track, chained window to window.
@@ -67,14 +67,39 @@ first glider at s = 0.1 with the trim warm start, on the window kernels
 (``--solver fused``, the reference's ``BENCH_FUSED=1``) or
 ``ilqr.solve_batch`` (``--solver ilqr``), and print the reference mode's
 keys plus ``device``, ``matmul_precision`` and the launch counts.
+
+The fleet-scale modes (the reference's ``BENCH_MODE=phase|warm|roofline|
+oppoints|scaling``) print the reference mode's keys, ``device`` holding
+the card's name and power limit:
+
+* ``--mode phase``: one inner iLQR iteration at B=256, N=50 split into
+  its pieces, each timed alone (``bench_phase``); ``--cuda-chol`` puts
+  the backward piece on the batched-Cholesky kernel.
+* ``--mode warm``: a cold window and ``--windows`` (6) warm windows of
+  ``ilqr.solve_batch`` at 2 x 6 (``bench_warm``).
+* ``--mode roofline``: the fused window solve at 2 x 6 against the work
+  its kernels' source counts (``aircraft_tpu_torch/roofline.py``).
+* ``--mode oppoints``: one headline chain per ``--points`` entry
+  ("ALxINNER[r]", a subprocess each), the best point clearing the gate;
+  ``--no-row-penalty`` runs the headline without the per-row ratchet.
+* ``--mode scaling``: ``parallel.solve_batch_sharded`` at each of
+  ``--devices`` ranks (NCCL, one rank per card, a count above the
+  visible cards skipped; gloo processes on ``cpu``).
+
+oppoints and scaling write their record under
+``build/aircraft_tpu_torch/runs/`` (or ``--out``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import sys
 import time
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -106,10 +131,16 @@ RESET_VIOL = 5.0              # physical-unit-scaled rows
 DEADLINE_S = (N_HORIZON - OVERLAP) * DT   # the flight a window commits
 
 
-def headline_config(al_iters=3, inner_iters=12, ls=6) -> SolverConfig:
+def headline_config(al_iters=3, inner_iters=12, ls=6, *, row_penalty=True,
+                    reg_escalate=100.0) -> SolverConfig:
+    """The bench's Gauss-Newton budget: ``row_penalty`` turns on the
+    per-row penalty ratchet (the headline's; an oppoints point without
+    its trailing ``r`` and the warm, roofline and scaling modes run
+    without it, as the reference's ``BENCH_ROWPEN=0``)."""
     return SolverConfig(max_al_iters=al_iters, max_inner_iters=inner_iters,
                         line_search_steps=ls, hessian="gauss_newton",
-                        reg_escalate=100.0, penalty_per_row=True)
+                        reg_escalate=reg_escalate,
+                        penalty_per_row=row_penalty)
 
 
 def plant_best_glide(params, speeds=(24.0, 28.0, 32.0), seed=0):
@@ -128,15 +159,18 @@ def plant_best_glide(params, speeds=(24.0, 28.0, 32.0), seed=0):
     return best[0], 0.9 * best[1]
 
 
-def build_problem(device="cuda", *, coeff=None, seed=0):
+def build_problem(device="cuda", *, coeff=None, seed=0, glide=None):
     """The bench's window OCP: MLP plant, course track anchored 20 m above
     ground at its end, the course knobs with unit-scaled envelope rows and
-    the tanh control squash.  Returns (cfg, params, ocp, track, v_ref, spec)."""
+    the tanh control squash.  ``glide``: the plant's (v_ref, glide_ld)
+    when already found (``plant_best_glide``, whose trims dominate the
+    set-up).  Returns (cfg, params, ocp, track, v_ref, spec)."""
     dev = resolve_device(device)
     cfg = glider_config()
     coeff = load_mlp(device=dev) if coeff is None else coeff
     params = AircraftParams.from_config(cfg.aircraft, coeff=coeff, device=dev)
-    v_ref, glide_ld = plant_best_glide(params, seed=seed)
+    v_ref, glide_ld = (plant_best_glide(params, seed=seed) if glide is None
+                       else glide)
     track = course_track(cfg, v_ref=v_ref, glide_ld=glide_ld)
     z_end = float(track.track_points[:, 2].max())
     track.track_points = track.track_points.clone()
@@ -188,19 +222,24 @@ def kernel_launches() -> dict:
 
 def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
                  inner_iters=12, ls=6, warmup=6, reps=3, seed=0,
-                 solver="fused", cuda_chol=False) -> dict:
+                 solver="fused", cuda_chol=False, row_penalty=True,
+                 reg_escalate=100.0, glide=None) -> dict:
     """Cold window, `warmup` chained windows, then `reps` timed chained
     windows; returns the headline record.  ``solver`` is ``"fused"`` (the
     window kernels) or ``"ilqr"`` (``ilqr.solve_batch``, its Quu solves
-    on the batched-Cholesky kernel when ``cuda_chol``)."""
+    on the batched-Cholesky kernel when ``cuda_chol``); ``row_penalty``
+    as ``headline_config``; ``glide`` as ``build_problem``."""
     if solver not in ("fused", "ilqr"):
         raise ValueError(f"solver={solver!r}")
     if cuda_chol and solver != "ilqr":
         raise ValueError("cuda_chol applies to solver='ilqr'")
     dev = resolve_device(device)
     t_setup = time.perf_counter()
-    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed)
-    config = headline_config(al_iters, inner_iters, ls)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed,
+                                                         glide=glide)
+    config = headline_config(al_iters, inner_iters, ls,
+                             row_penalty=row_penalty,
+                             reg_escalate=reg_escalate)
     z0s, trim = fleet_states(params, track, batch, v_ref, seed=seed)
     u_trim = ocp.control_unsquash(trim.control[:7])
     us0 = u_trim.reshape(1, 1, 7).expand(batch, horizon, 7).contiguous()
@@ -463,16 +502,18 @@ def bench_riccati(device="cuda", *, horizons=(50, 200, 800, 3200), reps=7,
 
 
 def serving_problem(device="cuda", *, horizon=N_HORIZON, al_iters=3,
-                    inner_iters=12, ls=6, solver="fused", seed=0):
+                    inner_iters=12, ls=6, solver="fused", seed=0, glide=None):
     """One aircraft on the headline problem: a healthy on-track state
     (the fleet's first glider at s = 0.1) and the trim warm start.
     Returns (dev, ocp, config, z0 (14,), us0 (N, 7), solve), ``solve``
     taking batch-leading (z0s, us, al) through the window kernels
-    (``fused``) or ``ilqr.solve_batch`` (``ilqr``)."""
+    (``fused``) or ``ilqr.solve_batch`` (``ilqr``); ``glide`` as
+    ``build_problem``."""
     if solver not in ("fused", "ilqr"):
         raise ValueError(f"solver={solver!r}")
     dev = resolve_device(device)
-    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed,
+                                                         glide=glide)
     config = headline_config(al_iters, inner_iters, ls)
     zs, trim = fleet_states(params, track, 1, v_ref, s_span=(0.1, 0.1),
                             seed=seed)
@@ -488,13 +529,13 @@ def serving_problem(device="cuda", *, horizon=N_HORIZON, al_iters=3,
 
 def bench_latency(device="cuda", *, horizon=N_HORIZON, al_iters=3,
                   inner_iters=12, ls=6, reps=30, solver="fused",
-                  seed=0) -> dict:
+                  seed=0, glide=None) -> dict:
     """p50 / p90 replan latency of one aircraft's window solve (batch 1)
     from the same state and warm start, against the 0.2 s of flight a
     window commits (the reference's ``BENCH_MODE=latency``)."""
     dev, ocp, config, z0, us0, solve = serving_problem(
         device, horizon=horizon, al_iters=al_iters, inner_iters=inner_iters,
-        ls=ls, solver=solver, seed=seed)
+        ls=ls, solver=solver, seed=seed, glide=glide)
     t0 = time.perf_counter()
     sol = solve(z0[None], us0[None])
     _sync(dev)
@@ -529,7 +570,7 @@ def bench_latency(device="cuda", *, horizon=N_HORIZON, al_iters=3,
 
 def bench_serve(device="cuda", *, windows=50, pipeline=True, horizon=N_HORIZON,
                 al_iters=3, inner_iters=12, ls=6, solver="fused",
-                seed=0) -> dict:
+                seed=0, glide=None) -> dict:
     """One aircraft served window after window against the deadline of
     the 0.2 s of flight each window commits, every committed window
     pushed to the async telemetry recorder (the reference's
@@ -549,7 +590,7 @@ def bench_serve(device="cuda", *, windows=50, pipeline=True, horizon=N_HORIZON,
 
     dev, ocp, config, x, us_reset, solve = serving_problem(
         device, horizon=horizon, al_iters=al_iters, inner_iters=inner_iters,
-        ls=ls, solver=solver, seed=seed)
+        ls=ls, solver=solver, seed=seed, glide=glide)
     N = horizon
     commit = N - OVERLAP if N > OVERLAP else max(1, N // 2)
     al_reset = ocp_mod.init_al_state(ocp, x[None], us_reset[None, 0], N,
@@ -791,34 +832,560 @@ def bench_whole(device="cuda", *, horizon=WHOLE_HORIZON, al_iters=6,
     }
 
 
+# ---------------------------------------------------------------------------
+# the fleet-scale modes: phase, warm, roofline, oppoints, scaling
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+OPPOINTS = "2x6,2x10,3x8,3x12r,3x16r,4x20r"
+FEASIBLE_SHARE = 0.95        # the reference's practical-feasibility gate
+
+
+def _runs_dir() -> Path:
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+
+    return BUILD_DIR / "runs"
+
+
+def _write_run(out: dict, name: str, path=None) -> Path:
+    """The record as JSON at ``path``, or as ``<name>.json`` under the build
+    directory's ``runs/`` (the reference writes ``data/runs/``)."""
+    path = Path(path) if path is not None else _runs_dir() / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    return path
+
+
+def initial_states(cfg, batch, device, seed=42):
+    """(B, 14): the configured initial state at progress 0 plus 0.01 N(0, 1)
+    on its 13 flight states, drawn from a ``torch.Generator`` (the
+    reference's ``_bench_initial_states``)."""
+    gen = torch.Generator().manual_seed(seed)
+    x0 = torch.tensor(list(cfg.waypoints.initial_state) + [0.0],
+                      dtype=torch.float32)
+    noise = 0.01 * torch.randn((batch, 14), generator=gen)
+    noise[:, 13] = 0.0
+    return (x0 + noise).to(device)
+
+
+def _launches_since(before: dict) -> dict:
+    now = kernel_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _timed_calls(fn, reps, dev):
+    """Median host wall of ``reps`` calls of fn() after one untimed call,
+    each synchronised before and after."""
+    fn()
+    return _median_wall(fn, (), reps, dev)
+
+
+def bench_phase(device="cuda", *, batch=256, horizon=N_HORIZON, reps=5,
+                cuda_chol=False, glide=None) -> dict:
+    """One inner iLQR iteration of the bench problem split into its
+    pieces, each timed as its own call over the whole batch: the initial
+    rollout, the linearisation, the Gauss-Newton expansion (residual
+    form), the sequential Riccati sweep (on the batched-Cholesky kernel
+    with ``cuda_chol``) and the line search over 12 step sizes (2^0 …
+    2^-10 and 0).  States: ``initial_states``; zero controls.  Each time is
+    the median of ``reps`` calls after an untimed one.
+
+    ``linearize_s`` is the solver's own ``ilqr.linearize``, which already
+    pushes one basis over [x; u]; ``linearize_fused_s`` (outside the total)
+    is the reference's A/B form, one Jacobian of the step over the joined
+    z = [x; u], so here the two time nearly the same work.  ``glide`` as
+    ``build_problem``, here and in the other fleet-scale modes."""
+    from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
+
+    dev = resolve_device(device)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, glide=glide)
+    B, N, n = batch, horizon, 14
+    x0s = initial_states(cfg, B, dev)
+    us0 = torch.zeros((B, N, 7), device=dev)
+    alphas = torch.tensor(ilqr.line_search_alphas(12), device=dev)
+    reg = torch.full((B,), 1e-6, device=dev)
+    ks = ilqr._knot_index(B, N, dev)
+
+    def lin_fused(xs, us):
+        z = torch.cat([ilqr._knots(xs[:, :-1]), ilqr._knots(us)], dim=-1)
+        J = batched_jacfwd(lambda z: ocp.step(z[:, :n], z[:, n:], ks), z)
+        return J[..., :n], J[..., n:]
+
+    def backward():
+        return riccati.backward_sequential(A, Bm, *quad, reg,
+                                           cuda_chol=cuda_chol)
+
+    # the data flow of one iteration, staged once
+    xs, _ = ilqr.initial_rollout(ocp, x0s, us0)
+    al0 = ocp_mod.init_al_state(ocp, x0s, us0[:, 0], N)
+    A, Bm = ilqr.linearize(ocp, xs, us0)
+    quad = tuple(ilqr._san(t, 1e8)
+                 for t in ilqr.quadraticize_gn(ocp, al0, xs, us0))
+    K, kff, *_ = backward()
+    K, kff = torch.clamp(K, -50.0, 50.0), torch.clamp(kff, -50.0, 50.0)
+
+    pieces = {
+        "rollout_s": _timed_calls(
+            lambda: ilqr.initial_rollout(ocp, x0s, us0), reps, dev),
+        "linearize_s": _timed_calls(
+            lambda: ilqr.linearize(ocp, xs, us0), reps, dev),
+        "quadraticize_s": _timed_calls(
+            lambda: ilqr.quadraticize_gn(ocp, al0, xs, us0), reps, dev),
+    }
+    before = kernel_launches()
+    pieces["backward_s"] = _timed_calls(backward, reps, dev)
+    chol_per_call = (_launches_since(before)["batched_cholesky_solve"]
+                     / (reps + 1))
+    pieces["forward_12alpha_s"] = _timed_calls(
+        lambda: ilqr.forward_pass(ocp, al0, xs, us0, K, kff, alphas), reps,
+        dev)
+    total = sum(pieces.values())
+    out = {
+        "metric": "ilqr_inner_iteration_phase_split",
+        "value": round(total, 5),
+        "unit": "s/iteration",
+        "vs_baseline": 1.0,
+        "batch": B,
+        "horizon": N,
+        "use_residuals": True,
+        "device": _card(dev),
+    }
+    out.update({k: round(v, 5) for k, v in pieces.items()})
+    out.update({k[:-2] + "_frac": round(v / total, 3)
+                for k, v in pieces.items()})
+    out["linearize_fused_s"] = round(_timed_calls(
+        lambda: lin_fused(xs, us0), reps, dev), 5)
+    out.update({"reps": reps, "cuda_chol": cuda_chol,
+                "backward_cholesky_launches_per_call": chol_per_call,
+                "matmul_precision": matmul_precision(),
+                "kernel_launches": kernel_launches()})
+    return out
+
+
+def bench_warm(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=2,
+               inner_iters=6, ls=6, reg_escalate=100.0, row_penalty=False,
+               windows=6, cuda_chol=False, glide=None) -> dict:
+    """Steady receding-horizon throughput of ``ilqr.solve_batch``: a cold
+    window from ``initial_states`` and zero controls, then ``windows`` warm
+    windows, each from the state at the commit knot (N - 30) with the
+    controls shifted and the last one held; the value is the fleet over
+    the median warm window's wall (the reference's ``BENCH_MODE=warm``).
+    ``cuda_chol`` puts the Riccati solves on the batched-Cholesky kernel."""
+    dev = resolve_device(device)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, glide=glide)
+    config = headline_config(al_iters, inner_iters, ls,
+                             row_penalty=row_penalty,
+                             reg_escalate=reg_escalate)
+    B, N = batch, horizon
+    commit = N - OVERLAP if N > OVERLAP else max(1, N // 2)
+
+    def solve(z, us):
+        return ilqr.solve_batch(ocp, z, us, config, cuda_chol=cuda_chol)
+
+    before = kernel_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    sols = solve(initial_states(cfg, B, dev),
+                 torch.zeros((B, N, 7), device=dev))
+    _sync(dev)
+    cold_wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(windows):
+        z = sols.xs[:, commit].contiguous()
+        us = torch.cat([sols.us[:, commit:],
+                        sols.us[:, -1:].expand(-1, commit, -1)],
+                       dim=1).contiguous()
+        _sync(dev)
+        t0 = time.perf_counter()
+        sols = solve(z, us)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    launches = _launches_since(before)
+    passes = (1 + windows) * al_iters * inner_iters
+    cost = sols.cost.detach().cpu().numpy()
+    return {
+        "metric": "6dof_nn_mpc_warm_window_solves_per_s_N50_per_chip",
+        "value": round(B / wall, 2),
+        "unit": "solves/s",
+        "vs_baseline": round(B / wall / BASELINE_SOLVES_PER_S, 2),
+        "batch": B,
+        "warm_wall_s_per_window": round(wall, 4),
+        "cold_wall_s": round(cold_wall, 1),
+        "windows_timed": windows,
+        "finite_fraction": round(float(np.isfinite(cost).mean()), 3),
+        "mean_violation": round(float(np.nanmean(
+            sols.violation.detach().cpu().numpy())), 4),
+        "device": _card(dev),
+        "horizon": N,
+        "al_iters": al_iters,
+        "inner_iters": inner_iters,
+        "line_search_steps": ls,
+        "penalty_per_row": row_penalty,
+        "cuda_chol": cuda_chol,
+        "backward_passes": passes,
+        "cholesky_launches_per_backward_pass":
+            launches["batched_cholesky_solve"] / passes,
+        "kernel_launches": launches,
+        "matmul_precision": matmul_precision(),
+    }
+
+
+def bench_roofline(device="cuda", *, batch=256, horizon=N_HORIZON,
+                   al_iters=2, inner_iters=6, ls=6, reg_escalate=100.0,
+                   row_penalty=False, reps=3, glide=None) -> dict:
+    """Speed-of-light accounting of the fused window solve (the port's
+    main path) on ``initial_states`` with zero controls: its work counted
+    from the kernels' source (``roofline.solve_work``), its warm wall (the
+    median of ``reps`` after an untimed solve) and the card's ceilings,
+    picked by its name.  ``value`` = the bound's wall / the measured wall.
+
+    The reference reads XLA's cost model (``xla_flops_per_batch``,
+    ``xla_hbm_bytes_per_batch``); PyTorch has none, so
+    ``counted_flops_per_batch`` and ``counted_bytes_per_batch`` take their
+    place: the initial rollout and each inner iteration's two window
+    kernels (``counted``).  The pieces under ``uncounted`` add work, so the
+    fraction is a lower bound.  A card the table does not know (and the
+    CPU) gives ``bound`` "unknown device" and value 0.0, as in the
+    reference."""
+    from aircraft_tpu_torch import roofline
+
+    dev = resolve_device(device)
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, glide=glide)
+    config = headline_config(al_iters, inner_iters, ls,
+                             row_penalty=row_penalty,
+                             reg_escalate=reg_escalate)
+    solve = make_fused_solver(ocp, spec, horizon, config)
+    z0s = initial_states(cfg, batch, dev)
+    us0 = torch.zeros((batch, horizon, 7), device=dev)
+    flops, nbytes = roofline.solve_work(solve.operands, batch,
+                                        al_iters * inner_iters)
+    before = kernel_launches()
+    wall = _timed_calls(lambda: solve(z0s, us0), reps, dev)
+    out = {
+        "metric": "roofline_speed_of_light_fraction",
+        "unit": "fraction",
+        "batch": batch,
+        "wall_s": round(wall, 4),
+        "counted_flops_per_batch": flops,
+        "counted_bytes_per_batch": nbytes,
+        "counted": list(roofline.COUNTED),
+        "uncounted": list(roofline.UNCOUNTED),
+        "achieved_gflops": round(flops / wall / 1e9, 1),
+        "achieved_hbm_gbs": round(nbytes / wall / 1e9, 1),
+        "arithmetic_intensity_flops_per_byte": round(flops / max(nbytes, 1),
+                                                     2),
+        "device": _card(dev),
+        "horizon": horizon,
+        "al_iters": al_iters,
+        "inner_iters": inner_iters,
+        "line_search_steps": ls,
+        "reps": reps,
+        "fused_kernels": dev.type == "cuda",
+        "kernel_launches": _launches_since(before),
+    }
+    peak = roofline.peaks(_device_name(dev)) if dev.type == "cuda" else None
+    if peak is None:
+        out.update({"value": 0.0, "vs_baseline": 0.0,
+                    "bound": "unknown device"})
+        return out
+    t_compute, t_memory = flops / peak[0], nbytes / peak[1]
+    sol_wall = max(t_compute, t_memory)
+    out.update({
+        "value": sol_wall / wall,
+        "vs_baseline": sol_wall / wall,
+        "bound": "compute" if t_compute > t_memory else "memory",
+        "sol_wall_s": sol_wall,
+        "peak_tflops_f32": peak[0] / 1e12,
+        "peak_hbm_gbs": peak[1] / 1e9,
+    })
+    return out
+
+
+def parse_point(spec: str) -> tuple:
+    """An operating point "ALxINNER[r]": (AL rounds, inner iterations,
+    per-row penalty ratchet), the trailing "r" turning the ratchet on."""
+    spec = spec.strip()
+    al, inner = spec.rstrip("r").split("x")
+    return int(al), int(inner), spec.endswith("r")
+
+
+def best_point(rows) -> Optional[dict]:
+    """The fastest row that clears the gate (converged_fraction_1e2 >=
+    0.95), or None."""
+    feasible = [r for r in rows
+                if r.get("converged_fraction_1e2", 0) >= FEASIBLE_SHARE]
+    return max(feasible, key=lambda r: r["solves_per_s"]) if feasible else None
+
+
+def bench_oppoints(device="cuda", *, points=OPPOINTS, point_timeout=3600.0,
+                   batch=256, horizon=N_HORIZON, ls=6, warmup=6, reps=3,
+                   out_path=None, glide=None) -> dict:
+    """The serving chain's operating points: each "ALxINNER[r]" of
+    ``points`` is one headline chain (``python -m aircraft_tpu_torch.bench``
+    in a subprocess on the same device, its own ``point_timeout``), and the
+    value is the best throughput among the points that clear the gate, 0.0
+    when none does (the reference's ``BENCH_MODE=oppoints``).  The record
+    goes to ``out_path`` or ``build/aircraft_tpu_torch/runs/
+    operating_points.json``; each row is printed to stderr as it is
+    made.  ``glide``, when given, goes to each point as ``--glide``."""
+    dev = resolve_device(device)
+    pythonpath = [str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                                if os.environ.get("PYTHONPATH") else [])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(pythonpath))
+    rows = []
+    for spec in points.split(","):
+        spec = spec.strip()
+        al, inner, rowpen = parse_point(spec)
+        cmd = [sys.executable, "-m", "aircraft_tpu_torch.bench",
+               "--device", str(device), "--batch", str(batch),
+               "--horizon", str(horizon), "--al-iters", str(al),
+               "--inner-iters", str(inner), "--line-search", str(ls),
+               "--warmup", str(warmup), "--reps", str(reps),
+               "--row-penalty" if rowpen else "--no-row-penalty"]
+        if glide is not None:
+            cmd += ["--glide", ",".join(repr(float(g)) for g in glide)]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=point_timeout)
+        except subprocess.TimeoutExpired:
+            rows.append({"point": spec, "error": "timeout"})
+            print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+            continue
+        wall = time.perf_counter() - t0
+        line = next((l for l in reversed(proc.stdout.strip().splitlines())
+                     if l.startswith("{")), None)
+        if proc.returncode != 0 or line is None:
+            rows.append({"point": spec,
+                         "error": (proc.stderr or proc.stdout)[-500:]})
+        else:
+            r = json.loads(line)
+            rows.append({
+                "point": spec, "al": al, "inner": inner, "rowpen": rowpen,
+                "solves_per_s": r["value"],
+                "mean_violation": r["mean_violation"],
+                "median_violation": r["median_violation"],
+                "p90_violation": r["p90_violation"],
+                "converged_fraction_1e2": r["converged_fraction_1e2"],
+                "converged_fraction_1e4": r.get("converged_fraction_1e4"),
+                "diverged_fraction": r["diverged_fraction"],
+                "mean_cost": r["mean_cost"],
+                "violation_units": r["violation_units"],
+                "batch": r["batch"], "device": r["device"],
+                "subprocess_wall_s": round(wall, 1),
+                "kernel_launches": r["kernel_launches"],
+            })
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+    best = best_point(rows)
+    value = best["solves_per_s"] if best else 0.0
+    out = {
+        "metric": "serving_chain_feasible_operating_point_solves_per_s",
+        "value": value,
+        "unit": "solves/s",
+        "vs_baseline": round(value / BASELINE_SOLVES_PER_S, 2),
+        "gate": f"converged_fraction_1e2 >= {FEASIBLE_SHARE}",
+        "best_point": best["point"] if best else None,
+        "points": rows,
+        "device": _card(dev),
+    }
+    out["written_to"] = str(_write_run(out, "operating_points", out_path))
+    return out
+
+
+def scaling_rank(mesh, job: dict, n_dev: int, mode: str) -> dict:
+    """One (device count, mode) measurement on one rank of
+    ``parallel.spawn``: ``solve_batch_sharded`` of the job's fleet, an
+    untimed solve and then ``reps`` timed ones (the ranks meet at a
+    barrier before each; the summary's host read waits for every rank)."""
+    import torch.distributed as dist
+
+    from aircraft_tpu_torch.parallel import solve_batch_sharded
+
+    _, _, ocp, *_ = build_problem(mesh.device, glide=job["glide"])
+    x0s = torch.as_tensor(job["z0s"], device=mesh.device)
+    us0 = torch.as_tensor(job["us0"], device=mesh.device)
+
+    def run():
+        _, summary = solve_batch_sharded(ocp, x0s, us0, mesh, job["config"],
+                                         cuda_chol=job["cuda_chol"])
+        return [float(t) for t in summary]
+
+    run()
+    before = kernel_launches()
+    walls = []
+    for _ in range(job["reps"]):
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        n_conv, mean_cost, max_viol, _ = run()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    total = x0s.shape[0]
+    return {
+        "devices": n_dev,
+        "mode": mode,
+        "total_batch": total,
+        "ranks": mesh.size,
+        "wall_s": round(wall, 4),
+        "solves_per_s": round(total / wall, 3),
+        "mean_cost": round(mean_cost, 2),
+        "max_violation": round(max_viol, 4),
+        "n_converged": int(n_conv),
+        "device": _card(mesh.device),
+        "kernel_launches": _launches_since(before),
+    }
+
+
+def bench_scaling(device="cuda", *, devices=(1, 2, 4, 8), per_device=8,
+                  horizon=N_HORIZON, al_iters=2, inner_iters=6, ls=6,
+                  reg_escalate=100.0, row_penalty=False, reps=3,
+                  cuda_chol=False, out_path=None, glide=None,
+                  rank=None) -> dict:
+    """Weak scaling of ``parallel.solve_batch_sharded`` (the reference's
+    ``BENCH_MODE=scaling``): for each device count n, the ``sharded`` run
+    (n ranks, ``per_device`` fleet scenarios each) and, for n > 1, the
+    ``single`` run (the same n·per_device scenarios on one rank), each
+    through ``parallel.spawn``.  ``weak_scaling_efficiency_raw`` is the
+    1-rank wall over the n-rank wall; ``topology_efficiency`` the single
+    wall over the sharded wall (the same total work, so it isolates the
+    split and the collectives).
+
+    On ``cuda`` each rank takes its own card over NCCL, and a count above
+    the visible cards is not run: it is listed under ``skipped``.  On
+    ``cpu`` the ranks are gloo processes with one thread each, standing
+    in for the reference's virtual devices, and share the host's cores.
+    A failing rank fails the call.  ``rank``: the function each rank runs
+    (``scaling_rank``'s signature; by default ``scaling_rank``), found by
+    its import path.  The record goes to ``out_path`` or
+    ``build/aircraft_tpu_torch/runs/scaling_<device>.json``."""
+    from aircraft_tpu_torch import parallel
+
+    dev = resolve_device(device)
+    if rank is None:
+        # the ranks find the rank function by its import path, also when
+        # this file runs as __main__
+        from aircraft_tpu_torch import bench as this
+        rank = this.scaling_rank
+    if glide is None:
+        glide = plant_best_glide(AircraftParams.from_config(
+            glider_config().aircraft, coeff=load_mlp(device=dev),
+            device=dev))
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, glide=glide)
+    config = headline_config(al_iters, inner_iters, ls,
+                             row_penalty=row_penalty,
+                             reg_escalate=reg_escalate)
+    visible = torch.cuda.device_count() if dev.type == "cuda" else None
+    rows, skipped, ran = [], [], []
+    for n_dev in devices:
+        if visible is not None and n_dev > visible:
+            skipped.append({"devices": n_dev, "reason":
+                            f"{visible} visible card(s); NCCL takes one "
+                            "rank per card"})
+            continue
+        ran.append(n_dev)
+        total = per_device * n_dev
+        z0s, trim = fleet_states(params, track, total, v_ref)
+        u_trim = ocp.control_unsquash(trim.control[:7])
+        job = {"glide": glide, "config": config, "reps": reps,
+               "cuda_chol": cuda_chol, "z0s": z0s.cpu().numpy(),
+               "us0": u_trim.reshape(1, 1, 7).expand(
+                   total, horizon, 7).cpu().numpy()}
+        for mode in (["sharded"] if n_dev == 1 else ["sharded", "single"]):
+            world = n_dev if mode == "sharded" else 1
+            row = parallel.spawn(rank, world, device=device,
+                                 args=(job, n_dev, mode))[0]
+            rows.append(row)
+            print(json.dumps(row), file=sys.stderr, flush=True)
+
+    by = {(r["devices"], r["mode"]): r for r in rows}
+    w1 = by.get((1, "sharded"), {}).get("wall_s")
+    curve = {}
+    for n_dev in ran:
+        s = by.get((n_dev, "sharded"))
+        if s is None or w1 is None:
+            continue
+        entry = {"solves_per_s": s["solves_per_s"], "wall_s": s["wall_s"],
+                 "weak_scaling_efficiency_raw": round(w1 / s["wall_s"], 4)}
+        sg = by.get((n_dev, "single"))
+        if sg is not None:
+            entry["topology_efficiency"] = round(sg["wall_s"] / s["wall_s"],
+                                                 4)
+            entry["single_device_same_batch_wall_s"] = sg["wall_s"]
+        curve[f"{n_dev}dev"] = entry
+    last = ran[-1] if ran else 0
+    topo = curve.get(f"{last}dev", {}).get("topology_efficiency", 0.0)
+    note = ("gloo processes on the host's cores stand in for devices and "
+            "share them, so weak_scaling_efficiency_raw is bound by core "
+            "contention (a lower bound only); topology_efficiency compares "
+            "the SAME total batch on 1 rank and on n, identical compute, "
+            "isolating the split and the collectives. Read the counts up to "
+            "the core count for the topology signal"
+            if dev.type == "cpu" else
+            "one rank per card over NCCL; a count above the visible cards "
+            "is not run (skipped)")
+    out = {
+        "metric": f"sharded_solve_topology_efficiency_{last}dev_{dev.type}",
+        "value": topo,
+        "unit": "fraction",
+        "vs_baseline": topo,
+        "per_device_batch": per_device,
+        "host_physical_cores": os.cpu_count(),
+        "note": note,
+        "curve": curve,
+        "rows": rows,
+        "skipped": skipped,
+        "horizon": horizon,
+        "al_iters": al_iters,
+        "inner_iters": inner_iters,
+        "penalty_per_row": row_penalty,
+        "cuda_chol": cuda_chol,
+        "device": _card(dev),
+    }
+    out["written_to"] = str(_write_run(out, f"scaling_{dev.type}", out_path))
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("headline", "kernel", "chol",
                                       "riccati", "latency", "serve",
-                                      "whole"),
+                                      "whole", "phase", "warm", "roofline",
+                                      "oppoints", "scaling"),
                    default="headline")
     p.add_argument("--solver", choices=("fused", "ilqr"), default="fused")
     p.add_argument("--cuda-chol", action="store_true",
-                   help="ilqr solver and riccati mode: Quu solves on the "
-                   "batched-Cholesky kernel")
+                   help="ilqr solver and the riccati, phase, warm and "
+                   "scaling modes: Quu solves on the batched-Cholesky kernel")
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch", type=int, default=None,
-                   help="256 (headline), 1024 (kernel), 12800 (chol)")
+                   help="256 (headline, phase, warm, roofline), 1024 "
+                   "(kernel), 12800 (chol)")
     p.add_argument("--horizon", type=int, default=None,
                    help="50 (297 in the whole mode)")
     p.add_argument("--substeps", type=int, default=10, help="kernel mode")
     p.add_argument("--al-iters", type=int, default=None,
-                   help="3 (6 in the whole mode)")
+                   help="3 (6 in the whole mode; 2 in warm, roofline, "
+                   "scaling)")
     p.add_argument("--inner-iters", type=int, default=None,
-                   help="12 (25 in the whole mode)")
+                   help="12 (25 in the whole mode; 6 in warm, roofline, "
+                   "scaling)")
     p.add_argument("--line-search", type=int, default=6)
+    p.add_argument("--row-penalty", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the per-row penalty ratchet (on in the headline, "
+                   "off in warm, roofline and scaling)")
+    p.add_argument("--glide", default=None,
+                   help="the plant's V_REF,GLIDE_LD when already found: "
+                   "skips the best-glide trims")
+    p.add_argument("--reg-escalate", type=float, default=100.0)
     p.add_argument("--warmup", type=int, default=6)
     p.add_argument("--reps", type=int, default=None,
                    help="timed windows (3) or timed calls (kernel 5, chol 7, "
-                   "riccati 7, latency 30)")
+                   "riccati 7, latency 30, phase 5, roofline 3, scaling 3)")
     p.add_argument("--horizons", default="50,200,800,3200",
                    help="riccati mode: comma-separated horizons")
-    p.add_argument("--windows", type=int, default=50, help="serve mode")
+    p.add_argument("--windows", type=int, default=None,
+                   help="serve mode (50), warm mode's warm windows (6)")
     p.add_argument("--no-pipeline", action="store_true",
                    help="serve mode: the synchronous loop")
     p.add_argument("--window", type=int, default=50,
@@ -828,15 +1395,32 @@ def main(argv=None) -> None:
     p.add_argument("--warm-iters", default="2,10",
                    help="whole mode: the warm start's AL rounds,inner "
                    "iterations per window")
+    p.add_argument("--points", default=OPPOINTS,
+                   help="oppoints mode: comma-separated ALxINNER[r]")
+    p.add_argument("--point-timeout", type=float, default=3600.0,
+                   help="oppoints mode: seconds per point")
+    p.add_argument("--devices", default="1,2,4,8",
+                   help="scaling mode: comma-separated device counts")
+    p.add_argument("--per-device", type=int, default=8,
+                   help="scaling mode: scenarios per rank")
+    p.add_argument("--out", default=None,
+                   help="oppoints and scaling modes: the record's path")
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
     whole = a.mode == "whole"
+    light = a.mode in ("warm", "roofline", "scaling")   # 2 x 6
     if a.horizon is None:
         a.horizon = WHOLE_HORIZON if whole else N_HORIZON
     if a.al_iters is None:
-        a.al_iters = 6 if whole else 3
+        a.al_iters = 6 if whole else 2 if light else 3
     if a.inner_iters is None:
-        a.inner_iters = 25 if whole else 12
+        a.inner_iters = 25 if whole else 6 if light else 12
+    if a.row_penalty is None:
+        a.row_penalty = not light
+    glide = (None if a.glide is None
+             else tuple(float(g) for g in a.glide.split(",")))
+    budget = dict(horizon=a.horizon, al_iters=a.al_iters,
+                  inner_iters=a.inner_iters, ls=a.line_search)
     if whole:
         out = bench_whole(a.device, horizon=a.horizon, al_iters=a.al_iters,
                           inner_iters=a.inner_iters, window=a.window,
@@ -856,18 +1440,49 @@ def main(argv=None) -> None:
         out = bench_latency(a.device, horizon=a.horizon, al_iters=a.al_iters,
                             inner_iters=a.inner_iters, ls=a.line_search,
                             reps=30 if a.reps is None else a.reps,
-                            solver=a.solver, seed=a.seed)
+                            solver=a.solver, seed=a.seed, glide=glide)
     elif a.mode == "serve":
-        out = bench_serve(a.device, windows=a.windows,
+        out = bench_serve(a.device, windows=a.windows or 50,
                           pipeline=not a.no_pipeline, horizon=a.horizon,
                           al_iters=a.al_iters, inner_iters=a.inner_iters,
-                          ls=a.line_search, solver=a.solver, seed=a.seed)
+                          ls=a.line_search, solver=a.solver, seed=a.seed,
+                          glide=glide)
+    elif a.mode == "phase":
+        out = bench_phase(a.device, batch=a.batch or 256, horizon=a.horizon,
+                          reps=a.reps or 5, cuda_chol=a.cuda_chol,
+                          glide=glide)
+    elif a.mode == "warm":
+        out = bench_warm(a.device, batch=a.batch or 256, **budget,
+                         reg_escalate=a.reg_escalate,
+                         row_penalty=a.row_penalty,
+                         windows=6 if a.windows is None else a.windows,
+                         cuda_chol=a.cuda_chol, glide=glide)
+    elif a.mode == "roofline":
+        out = bench_roofline(a.device, batch=a.batch or 256, **budget,
+                             reg_escalate=a.reg_escalate,
+                             row_penalty=a.row_penalty,
+                             reps=a.reps or 3, glide=glide)
+    elif a.mode == "oppoints":
+        out = bench_oppoints(a.device, points=a.points,
+                             point_timeout=a.point_timeout,
+                             batch=a.batch or 256, horizon=a.horizon,
+                             ls=a.line_search, warmup=a.warmup,
+                             reps=3 if a.reps is None else a.reps,
+                             out_path=a.out, glide=glide)
+    elif a.mode == "scaling":
+        out = bench_scaling(a.device, devices=tuple(
+            int(d) for d in a.devices.split(",")),
+            per_device=a.per_device, **budget, reg_escalate=a.reg_escalate,
+            row_penalty=a.row_penalty, reps=a.reps or 3,
+            cuda_chol=a.cuda_chol, out_path=a.out, glide=glide)
     else:
         out = run_headline(a.device, batch=a.batch or 256, horizon=a.horizon,
                            al_iters=a.al_iters, inner_iters=a.inner_iters,
                            ls=a.line_search, warmup=a.warmup,
                            reps=3 if a.reps is None else a.reps, seed=a.seed,
-                           solver=a.solver, cuda_chol=a.cuda_chol)
+                           solver=a.solver, cuda_chol=a.cuda_chol,
+                           row_penalty=a.row_penalty,
+                           reg_escalate=a.reg_escalate, glide=glide)
     print(json.dumps(out))
 
 

@@ -65,11 +65,11 @@ must pass or the script exits non-zero without a result line:
               batch of those (indefinite) systems, and the two sweeps
               held at 2e-3 on an LQ batch at the fleet's shape; the
               kernel, chol and riccati bench modes; the serving loop: the
-              latency mode (10 reps), the serve mode pipelined and then
-              synchronous over 10 windows each (native telemetry, nothing
+              latency mode (5 reps), the serve mode pipelined and then
+              synchronous over 5 windows each (native telemetry, nothing
               dropped; the two cadences printed side by side), 5 windows
               of MHTT.run on the headline plant and budget pipelined and
-              then synchronous (the same commits, bit for bit) and 8
+              then synchronous (the same commits, bit for bit) and 4
               windows of the course flight with 6 candidates, each window
               kernel launched once per inner iteration of every window
               solve; the planners: the whole mode's warm start in full
@@ -103,6 +103,47 @@ must pass or the script exits non-zero without a result line:
               width (N=40, glider, trim warm start) cut to 1 x 2, none
               carrying an error; one MHTT window of the polynomial plant
               at the headline window (N=50, B=1): iLQR, no window kernel;
+              and the fleet scale (the bench's phase, warm, roofline,
+              oppoints and scaling modes, parallel/ and the batched MPC
+              example): the phase mode at B=256 on the Cholesky kernel
+              route, every piece finite and positive and exactly 50
+              Cholesky launches per timed backward call; the warm mode
+              with --cuda-chol at B=256 and its own 2 x 6, exactly 50
+              Cholesky launches per backward pass, the fallback on at
+              most a tenth of them, finite fraction 1.0; the roofline
+              mode at B=256, 2 x 6, its value in (0, 1.05] (above 1.05 is
+              impossible) and each window kernel launched once per inner
+              iteration; oppoints at 2x6 and 3x12r, no row carrying an
+              error, each window kernel launched once per inner iteration
+              of its two windows; the horizon-sharded sweep's three
+              pieces in 5 blocks in this process
+              (backward_associative_blocked, the aggregates stacked where
+              ranks all-gather them) on the kernel route against
+              backward_associative on the LQ batch at the fleet's shape
+              (B=256, N=50), K and k within 2e-3 (1 + |ref|), one Cholesky
+              launch per block; the scaling mode at one device (a fleet
+              of 8, N=50, Cholesky kernel route), its one rank over NCCL
+              (one card: NCCL takes one rank per card) also running
+              solve_batch_sharded once more against the unsharded
+              ilqr.solve_batch on the same inputs, the solutions and the
+              summary bit for bit, 50 launches per backward pass;
+              batched_mpc at batch 64 for 2 windows (N=25, 2 substeps,
+              2 x 10), each window kernel launched once per inner
+              iteration of every window solve.  Cuts, never a width or a
+              shape: the phase mode's reps 5 -> 2; the warm mode's 6 warm
+              windows -> 2; the roofline mode's reps 3 -> 2; oppoints'
+              six points -> two, warmup 6 -> 0, reps 3 -> 1; the scaling
+              mode's 2 x 6 -> 1 x 2 and reps 3 -> 1; batched_mpc's 5
+              windows -> 2;
+   Every entry point that builds the headline problem is handed the
+   plant's best glide, found once per process (mlp_glide): its three trim
+   searches took ~8 s at each of a dozen call sites.  Once the kernels'
+   device times are taken (after the serving shapes), the planners and
+   the fleet scale run in a second process on the same card
+   (chip_smoke.py --side RESULT, its own counts and clock) beside the
+   other paths, to keep the smoke within its limit; its log is printed
+   after the plant breadth, and its failure fails the smoke.  Every
+   process the smoke starts is stopped before it exits.
 8. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
 
@@ -117,14 +158,13 @@ call) and `library_wrapper_ms`.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
 
-FP32_PEAK = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
 GAIN_TOL = 1e-2
 COST_TOL = 2e-4
 
@@ -138,8 +178,11 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def smi_line() -> str:
@@ -149,77 +192,23 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# work of the two kernels, counted from their source for this run's shapes
-# ---------------------------------------------------------------------------
-
-
-def rk4_flops(is_mlp: bool) -> int:
-    """fp32 operations of one rk4_norm of window_physics.cuh, an FMA
-    counted as two."""
-    mlp = 2 * (5 * 16 + 16 * 32 + 32 * 6) + 32 if is_mlp else 24
-    deriv = mlp + 160                       # flow, forces, Newton-Euler
-    return 4 * deriv + 13 * 9 + 12          # stages, combination, renorm
-
-
-def knot_flops(op) -> int:
-    """fp32 operations of one primal knot (window_physics.cuh::knot)."""
-    extras = 60 + 40 + 4 * op.nr + 6 * op.ng + 10
-    return op.spec.substeps * rk4_flops(op.is_mlp) + extras
-
-
-def backward_work(op, B):
-    N, nr, ng = op.spec.N, op.nr, op.ng
-    f = knot_flops(op)
-    tangents = 21 * 2 * f                   # a dual op: value + tangent
-    assembly = 2 * 21 * 21 * (nr + ng) + 2 * 21 * (nr + ng)
-    riccati = (2 * 21 * 14 * 14 + 2 * 21 * 21 * 14 + 2 * 21 * 14
-               + 7 ** 3 // 3 + 2 * 15 * 49 + 2 * 14 * 7 * 7
-               + 2 * 14 * 14 * 7 * 2 + 2 * 14 * 7 * 3)
-    flops = B * N * (f + tangents + assembly + riccati)
-    floats_in = (B * (N + 1) * 14 + B * N * 7 + B * N * ng + 2 * B
-                 + B * ng + B * 14 + B * 196 + op.mlp.numel()
-                 + op.table.numel() + N)
-    floats_out = B * N * 98 + B * N * 7 + 3 * B
-    return flops, 4 * (floats_in + floats_out) + B
-
-
-def forward_work(op, B):
-    N, A = op.spec.N, len(op.alphas)
-    per_knot = knot_flops(op) + 2 * 7 * 14 + 3 * 7 + 2 * 14 + 8 * op.ng + 10
-    flops = B * A * (N * per_knot + 12)
-    floats_in = (B * (N + 1) * 14 + B * N * 7 + B * N * 98 + B * N * 7
-                 + B * N * op.ng + B + B * op.ng + op.mlp.numel()
-                 + op.table.numel() + N)
-    floats_out = B * (N + 1) * 14 + B * N * 7 + B * (A + 3)
-    return flops, 4 * (floats_in + floats_out)
-
-
-def cholesky_work(B, m, k):
-    """batched_cholesky.cu: the factor (a multiply-subtract as two, a
-    divide, a max and a square root as one each) and two substitutions per
-    column; A and rhs read once, X written once."""
-    factor = sum(2 * j + (2 if i == j else 1)
-                 for i in range(m) for j in range(i + 1))
-    flops = B * (factor + k * 2 * m * m)
-    return flops, 4 * B * (m * m + 2 * m * k)
-
-
-def rollout_work(B, N, substeps, mlp_floats):
-    """fused_rollout.cu: N knots of `substeps` RK4 steps per scenario."""
-    flops = B * N * substeps * rk4_flops(True)
-    return flops, 4 * (B * 13 + B * N * 7 + B * (N + 1) * 13 + mlp_floats)
-
-
-def bound_ms(work):
-    flops, nbytes = work
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-# ---------------------------------------------------------------------------
 # comparisons
 # ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_glide(device="cuda"):
+    """The headline plant's (v_ref, glide_ld), found once per process and
+    handed to every bench entry point that builds the headline problem
+    (``bench.plant_best_glide``: three trim searches, ~8 s on the card)."""
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+
+    return bench.plant_best_glide(AircraftParams.from_config(
+        glider_config().aircraft, coeff=load_mlp(device=device),
+        device=device))
 
 
 def rel_err(a, ref):
@@ -575,7 +564,7 @@ def reversed_batch(model, N=10, n_fwd=8, n_rev=8, n_alpha=6):
 
     coeff = load_mlp(device="cuda") if model == "nn" else DefaultCoeffParams()
     cfg, params, ocp, track, v_ref, spec = bench.build_problem(
-        "cuda", coeff=coeff)
+        "cuda", coeff=coeff, glide=mlp_glide() if model == "nn" else None)
     config = bench.headline_config()
     z0s, trim = bench.fleet_states(params, track, n_fwd, v_ref)
     rev = z0s[:n_rev].clone()
@@ -603,7 +592,7 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
     plain version's and one library factor-and-solve's times."""
     import torch
 
-    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch import bench, roofline
     from aircraft_tpu_torch.kernels import cholesky
 
     x = cholesky.batched_cholesky_solve(a, rhs)
@@ -625,7 +614,7 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
                                   timing_reps)
         out["library_wrapper_ms"] = cuda_ms(lib, timing_reps)
         out["library_ms"] = device_ms(lib, timing_reps)
-        out["bound"] = bound_ms(cholesky_work(*rhs.shape))
+        out["bound"] = roofline.bound_ms(roofline.cholesky_work(*rhs.shape))
         print(f"{label}: kernel device {out['ms']:.5f} ms, in a CUDA graph "
               f"{out['graph_ms']:.5f} ms, wrapper {out['wrapper_ms']:.5f} ms; "
               f"plain {out['plain_ms']:.4f} ms; library device "
@@ -817,7 +806,8 @@ def fleet_problem(B=256):
     us, inp)."""
     from aircraft_tpu_torch import bench
 
-    _, params, ocp, track, v_ref, spec = bench.build_problem("cuda")
+    _, params, ocp, track, v_ref, spec = bench.build_problem(
+        "cuda", glide=mlp_glide())
     config = bench.headline_config()
     N = bench.N_HORIZON
     z0s, trim = bench.fleet_states(params, track, B, v_ref)
@@ -868,13 +858,13 @@ def serving_holds(op, config):
     with each hold's device times and bounds."""
     import torch
 
-    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch import bench, roofline
     from aircraft_tpu_torch.config import glider_config
     from aircraft_tpu_torch.control.course import build_course_mhtt
     from aircraft_tpu_torch.kernels import window as win
     from aircraft_tpu_torch.solvers.trim import multistart_trim
 
-    _, ocp, _, z0, us0, _ = bench.serving_problem("cuda")
+    _, ocp, _, z0, us0, _ = bench.serving_problem("cuda", glide=mlp_glide())
     gen = torch.Generator(device="cuda").manual_seed(5)
     us6 = us0[None].repeat(6, 1, 1)
     us6[1:] += 0.05 * torch.randn(us6[1:].shape, device="cuda", generator=gen)
@@ -925,8 +915,10 @@ def serving_holds(op, config):
             lambda: win.window_backward(op_i, *bw_args), 20)
         hold["forward_ms"] = graph_ms(
             lambda: win.window_forward(op_i, *fw_args), 20)
-        hold["backward_bound"] = bound_ms(backward_work(op_i, B))
-        hold["forward_bound"] = bound_ms(forward_work(op_i, B))
+        hold["backward_bound"] = roofline.bound_ms(
+            roofline.backward_work(op_i, B))
+        hold["forward_bound"] = roofline.bound_ms(
+            roofline.forward_work(op_i, B))
         print(f"{label}: in a CUDA graph, window_backward "
               f"{hold['backward_ms']:.4f} ms (bound "
               f"{hold['backward_bound'][0]:.5f} ms), window_forward "
@@ -992,8 +984,9 @@ def headline_mhtt(solver_config, fused=None, device="cuda", coeff=None):
     from aircraft_tpu_torch.control.course import COURSE_OCP_KNOBS
     from aircraft_tpu_torch.control.mhtt import MHTT
 
-    cfg, params, _, track, v_ref, _ = bench.build_problem(device,
-                                                          coeff=coeff)
+    cfg, params, _, track, v_ref, _ = bench.build_problem(
+        device, coeff=coeff, glide=None if coeff is not None
+        else mlp_glide(device))
     knobs = dict(COURSE_OCP_KNOBS)
     knobs["envelope_overrides"] = {**knobs["envelope_overrides"],
                                    "unit_scales": True}
@@ -1090,23 +1083,30 @@ def sync_audit(ocp, us, inp):
     riccati.read_fallbacks()
 
 
+def lq_batch(B, N, device="cuda", n=14, m=7):
+    """A well-posed LQ batch at the fleet's shape: the bench riccati
+    mode's stage data, one horizon per scenario, and reg = 1e-6."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import bench
+
+    rng = np.random.default_rng(7)
+    per = [bench.riccati_problem(N, rng, n=n, m=m) for _ in range(B)]
+    return tuple(torch.as_tensor(np.concatenate(t), device=device)
+                 for t in zip(*per)) + (
+        torch.full((B,), 1e-6, device=device),)
+
+
 def lq_sweeps(B, N, device="cuda", n=14, m=7):
     """Both sweeps on the kernel route on a well-posed LQ batch at the
     fleet's shape (the bench riccati mode's stage data, one horizon per
     scenario): their gains within 2e-3 (1 + |ref|), and the Cholesky
     launches of each, counted just around it."""
-    import numpy as np
-    import torch
-
-    from aircraft_tpu_torch import bench
     from aircraft_tpu_torch.kernels import cholesky
     from aircraft_tpu_torch.solvers import riccati
 
-    rng = np.random.default_rng(7)
-    per = [bench.riccati_problem(N, rng, n=n, m=m) for _ in range(B)]
-    args = tuple(torch.as_tensor(np.concatenate(t), device=device)
-                 for t in zip(*per)) + (
-        torch.full((B,), 1e-6, device=device),)
+    args = lq_batch(B, N, device, n, m)
     out, launches = {}, {}
     riccati.reset_counts()
     for mode in ("sequential", "associative"):
@@ -1435,7 +1435,11 @@ def sweep_host_s(ocp, us, inp, reps=5):
     return {k: float(np.median(v[1:])) for k, v in walls.items()}
 
 
-SERVE_WINDOWS = 10
+# the serving loop's depth (each halved to make room for the fleet phase
+# within the smoke's time limit)
+LATENCY_REPS = 5
+SERVE_WINDOWS = 5
+COURSE_WINDOWS = 4
 
 
 def serving_loop_paths():
@@ -1453,7 +1457,7 @@ def serving_loop_paths():
     launches, records = {}, {}
 
     reset_all_counts()
-    lat = bench.bench_latency("cuda", reps=10)
+    lat = bench.bench_latency("cuda", reps=LATENCY_REPS, glide=mlp_glide())
     print(json.dumps(lat), flush=True)
     check(lat["fused_kernels"], "latency mode did not run the kernels")
     check(math.isfinite(lat["cost"]) and math.isfinite(lat["violation"]),
@@ -1464,7 +1468,7 @@ def serving_loop_paths():
 
     # the serve mode pipelined and synchronous over the same windows
     reset_all_counts()
-    srv = bench.bench_serve("cuda", windows=SERVE_WINDOWS)
+    srv = bench.bench_serve("cuda", windows=SERVE_WINDOWS, glide=mlp_glide())
     print(json.dumps(srv), flush=True)
     check(srv["telemetry_backend"] == "native",
           f"serve mode telemetry backend {srv['telemetry_backend']}")
@@ -1481,7 +1485,8 @@ def serving_loop_paths():
     records["serve"] = srv
 
     reset_all_counts()
-    sync = bench.bench_serve("cuda", windows=SERVE_WINDOWS, pipeline=False)
+    sync = bench.bench_serve("cuda", windows=SERVE_WINDOWS, pipeline=False,
+                             glide=mlp_glide())
     print(json.dumps(sync), flush=True)
     check(sync["telemetry_dropped"] == 0
           and sync["telemetry_records"] == 20 * SERVE_WINDOWS
@@ -1528,7 +1533,7 @@ def serving_loop_paths():
     reset_all_counts()
     t0 = time.perf_counter()
     with CountWindowSolves() as solves:
-        crs = solve_full_course(glider_config(), max_windows=8,
+        crs = solve_full_course(glider_config(), max_windows=COURSE_WINDOWS,
                                 device="cuda")
     wall = time.perf_counter() - t0
     rec = {"windows": crs["windows"], "retries": crs["retries"],
@@ -1536,8 +1541,8 @@ def serving_loop_paths():
            "progress": crs["progress"], "misses": crs["misses"],
            "wall_s": wall, "window_walls_s": crs["window_walls_s"],
            "finite": bool(np.isfinite(crs["states"]).all())}
-    print("course, 8 windows: " + json.dumps(rec), flush=True)
-    check(crs["windows"] == 8 and crs["abort_reason"] is None
+    print(f"course, {COURSE_WINDOWS} windows: " + json.dumps(rec), flush=True)
+    check(crs["windows"] == COURSE_WINDOWS and crs["abort_reason"] is None
           and rec["finite"], f"course: {rec}")
     launches["course"] = check_window_launches(
         "course (6 candidates per window as one batch)", solves.n, 4 * 20)
@@ -1769,7 +1774,8 @@ def plant_breadth(device="cuda"):
 
     records = {}
     cuda = device != "cpu"
-    _, params, _, track, v_ref, _ = bench.build_problem(device)
+    _, params, _, track, v_ref, _ = bench.build_problem(
+        device, glide=mlp_glide(device))
     z0s, trim = bench.fleet_states(params, track, 256, v_ref)
     x = z0s[:, :13].contiguous()
     u = trim.control[:7].expand(x.shape[0], 7).contiguous()
@@ -1870,6 +1876,264 @@ def plant_breadth(device="cuda"):
     return records, launches
 
 
+# the fleet-scale phase's shapes and cuts (the module docstring lists them)
+FLEET_B = 256
+PHASE_REPS = 2
+WARM_WINDOWS = 2
+ROOFLINE_REPS = 2
+OPPOINTS_SMOKE = "2x6,3x12r"
+SCALING_BUDGET = (1, 2)     # the scaling mode's 2 x 6, cut
+SEQ_BLOCKS = 5
+MPC_BATCH, MPC_WINDOWS = 64, 2
+PHASE_PIECES = ("rollout_s", "linearize_s", "quadraticize_s", "backward_s",
+                "forward_12alpha_s", "linearize_fused_s")
+
+
+def scaling_check_rank(mesh, job, n_dev, mode):
+    """``bench.scaling_rank``'s row, and under ``check``: the job's
+    ``solve_batch_sharded`` once more with every count reset, then the
+    unsharded ``ilqr.solve_batch`` of the same inputs on the same rank,
+    whether every field of the solutions and the summary are bit for bit
+    equal, the backend, and the sharded solve's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.parallel import batched, solve_batch_sharded
+    from aircraft_tpu_torch.solvers import ilqr
+
+    row = bench.scaling_rank(mesh, job, n_dev, mode)
+    _, _, ocp, *_ = bench.build_problem(mesh.device, glide=job["glide"])
+    z0s = torch.as_tensor(job["z0s"], device=mesh.device)
+    us0 = torch.as_tensor(job["us0"], device=mesh.device)
+    reset_all_counts()
+    sols, summary = solve_batch_sharded(ocp, z0s, us0, mesh, job["config"],
+                                        cuda_chol=job["cuda_chol"])
+    launches = bench.kernel_launches()
+    ref = ilqr.solve_batch(ocp, z0s, us0, job["config"],
+                           cuda_chol=job["cuda_chol"])
+    ref_summary = batched.summarize(*batched.batch_sums(ref), z0s.shape[0])
+    fields = ("xs", "us", "cost", "violation", "converged", "iterations",
+              "grad_norm")
+    equal = {f: bool(torch.equal(getattr(sols, f), getattr(ref, f)))
+             for f in fields}
+    equal.update({f"summary.{f}": bool(torch.equal(a, b)) for f, a, b in zip(
+        summary._fields, summary, ref_summary)})
+    row["check"] = {"backend": dist.get_backend(), "world": mesh.size,
+                    "equal": equal, "launches": launches,
+                    "finite": bool(torch.isfinite(sols.cost).all())}
+    return row
+
+
+def fleet_scale(device="cuda"):
+    """The fleet-scale modes and parallel/, each path with every count
+    reset just before it: the phase mode on the kernel route, the warm
+    mode with --cuda-chol, the roofline mode, oppoints at two points, the
+    horizon-sharded sweep's three pieces in SEQ_BLOCKS blocks in this
+    process against the associative sweep, the scaling mode at one device
+    with the sharded solve held against the unsharded one, and the batched
+    MPC example, each handed the plant's best glide (``mlp_glide``).
+    Returns {path: launches}."""
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.examples import batched_mpc
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.parallel import seq_riccati
+    from aircraft_tpu_torch.solvers import riccati
+
+    import chip_smoke as this     # the rank function by its import path
+
+    cuda = device != "cpu"
+    N = bench.N_HORIZON
+    K5 = "batched_cholesky_solve"
+    paths = {}
+
+    glide = mlp_glide(device)
+
+    def timed(label, fn):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        print(json.dumps(out), flush=True)
+        print(f"fleet scale: {label} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    ph = timed("phase mode", lambda: bench.bench_phase(
+        device, batch=FLEET_B, reps=PHASE_REPS, cuda_chol=True, glide=glide))
+    check(all(math.isfinite(ph[k]) and ph[k] > 0 for k in PHASE_PIECES),
+          f"phase mode: a piece is not finite and positive: {ph}")
+    check(not cuda or ph["backward_cholesky_launches_per_call"] == N,
+          f"phase mode: {ph['backward_cholesky_launches_per_call']} "
+          f"Cholesky launches per backward call, expected {N}")
+    paths["phase"] = bench.kernel_launches()
+
+    wm = timed("warm mode", lambda: bench.bench_warm(
+        device, batch=FLEET_B, windows=WARM_WINDOWS, cuda_chol=True,
+        glide=glide))
+    n_chol = wm["kernel_launches"][K5]
+    check(not cuda or wm["cholesky_launches_per_backward_pass"] == N,
+          f"warm mode: {n_chol} Cholesky launches in "
+          f"{wm['backward_passes']} backward passes, expected {N} each")
+    check(wm["kernel_launches"]["chol_fallbacks"] <= n_chol / 10,
+          f"warm mode: {wm['kernel_launches']['chol_fallbacks']} fallbacks "
+          f"in {n_chol} launches")
+    check(wm["finite_fraction"] == 1.0,
+          f"warm mode: finite_fraction {wm['finite_fraction']}")
+    paths["warm"] = wm["kernel_launches"]
+
+    rf = timed("roofline mode", lambda: bench.bench_roofline(
+        device, batch=FLEET_B, reps=ROOFLINE_REPS, glide=glide))
+    check(not cuda or 0.0 < rf["value"] <= 1.05,
+          f"roofline mode: value {rf['value']} outside (0, 1.05]")
+    per = (ROOFLINE_REPS + 1) * rf["al_iters"] * rf["inner_iters"]
+    check(not cuda or all(rf["kernel_launches"][k] == per for k in (
+        "window_backward", "window_forward")),
+          f"roofline mode: launches {rf['kernel_launches']}, expected {per} "
+          "of each window kernel")
+    paths["roofline"] = rf["kernel_launches"]
+
+    op = timed("oppoints mode", lambda: bench.bench_oppoints(
+        device, points=OPPOINTS_SMOKE, warmup=0, reps=1, glide=glide))
+    bad = [r for r in op["points"] if "error" in r]
+    check(not bad, f"oppoints mode: rows with an error: {bad}")
+    for row in op["points"]:
+        want = 2 * row["al"] * row["inner"]     # a cold and a timed window
+        check(not cuda or all(row["kernel_launches"][k] == want for k in (
+            "window_backward", "window_forward")),
+              f"oppoints {row['point']}: launches {row['kernel_launches']}, "
+              f"expected {want} of each window kernel")
+    paths["oppoints"] = {k: sum(r["kernel_launches"][k] for r in op["points"])
+                         for k in op["points"][0]["kernel_launches"]}
+
+    reset_all_counts()
+    args = lq_batch(FLEET_B, N, device)
+    ref = riccati.backward_associative(*args, cuda_chol=True)
+    cholesky.reset_launch_counts()
+    blocked = seq_riccati.backward_associative_blocked(SEQ_BLOCKS, *args,
+                                                       cuda_chol=True)
+    n_blocks = cholesky.batched_cholesky_solve.launches
+    errs = {}
+    for i, name in enumerate(("K", "k")):
+        ok, errs[name] = close(blocked[i], ref[i], 2e-3)
+        check(ok, f"seq_riccati {SEQ_BLOCKS} blocks: {name} differs from "
+              f"the associative sweep by {errs[name]}")
+    check(not bool(blocked[5].any()), "seq_riccati blocks: fail flag set")
+    print(f"horizon-sharded sweep, {SEQ_BLOCKS} blocks in one process, LQ "
+          f"B={FLEET_B} N={N} on the kernel route: against the associative "
+          f"sweep max abs err {json.dumps(errs)} (tol 2e-3 x (1+|ref|)); "
+          f"Cholesky launches {n_blocks}", flush=True)
+    check(not cuda or n_blocks == SEQ_BLOCKS,
+          f"seq_riccati blocks: {n_blocks} Cholesky launches, expected "
+          f"{SEQ_BLOCKS}")
+    paths["seq_riccati_blocks"] = {K5: n_blocks}
+
+    sc = timed("scaling mode with the sharded solve's check", lambda:
+               bench.bench_scaling(
+                   device, devices=(1,), al_iters=SCALING_BUDGET[0],
+                   inner_iters=SCALING_BUDGET[1], reps=1, cuda_chol=True,
+                   glide=glide, rank=this.scaling_check_rank))
+    check(len(sc["rows"]) == 1, f"scaling mode: rows {sc['rows']}")
+    row = sc["rows"][0]
+    passes = SCALING_BUDGET[0] * SCALING_BUDGET[1]
+    check(not cuda or row["kernel_launches"][K5] == N * passes,
+          f"scaling mode: launches {row['kernel_launches']}")
+    sh = row["check"]
+    check(sh["backend"] == ("nccl" if cuda else "gloo") and sh["world"] == 1,
+          f"sharded solve ran over {sh['backend']} at world {sh['world']}")
+    check(all(sh["equal"].values()) and sh["finite"],
+          f"sharded solve differs from the unsharded one: {sh['equal']}")
+    check(not cuda or sh["launches"][K5] == N * passes,
+          f"sharded solve: {sh['launches'][K5]} Cholesky launches, expected "
+          f"{N * passes}")
+    paths["scaling"] = row["kernel_launches"]
+    paths["solve_batch_sharded"] = sh["launches"]
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    mpc = batched_mpc.run_fleet(MPC_BATCH, MPC_WINDOWS, device)
+    batched_mpc.report(mpc)
+    print(f"fleet scale: batched_mpc in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(bool(torch.isfinite(torch.as_tensor(mpc["progress"])).all()),
+          "batched_mpc: non-finite progress")
+    if cuda:
+        check_window_launches("batched_mpc", mpc["windows"], 20)
+    paths["batched_mpc"] = bench.kernel_launches()
+    return paths
+
+
+SIDE = []     # the side process, while it runs
+
+
+def side_paths(result_path) -> int:
+    """``chip_smoke.py --side RESULT``: the planners and the fleet scale,
+    each path with every count reset just before it, in a process of its
+    own that runs beside the main process's later paths once the kernels'
+    device times are taken.  Writes what the report needs to RESULT."""
+    from pathlib import Path
+
+    from aircraft_tpu_torch.kernels import _build
+
+    _build.build_all()      # built by the main process: loads them
+    phase("path: planners")
+    plan_launches, _, (a_sweep, rhs_sweep) = planners_paths()
+    _, _, sweep_rel = hold_cholesky_indefinite(
+        a_sweep, rhs_sweep, "candidate sweep's first Cholesky batch "
+        f"B={a_sweep.shape[0]} m={a_sweep.shape[1]} k={rhs_sweep.shape[2]} "
+        "(exact expansion)")
+    check(tuple(a_sweep.shape) == (8, 9, 9)
+          and tuple(rhs_sweep.shape) == (8, 9, 16),
+          f"candidate sweep's Cholesky batch {tuple(a_sweep.shape)}, "
+          f"{tuple(rhs_sweep.shape)}")
+
+    phase("path: fleet scale")
+    t0 = time.perf_counter()
+    fleet = fleet_scale()
+    print(f"fleet scale: {time.perf_counter() - t0:.1f} s", flush=True)
+    Path(result_path).write_text(json.dumps({
+        "plan_launches": plan_launches, "sweep_rel": sweep_rel,
+        "fleet": fleet}))
+    return 0
+
+
+def start_side():
+    """Start ``side_paths`` in a second process on the same card, its
+    output to a log under the build directory."""
+    from pathlib import Path
+
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+
+    out = BUILD_DIR / "chip_smoke_side"
+    out.mkdir(parents=True, exist_ok=True)
+    result, log = out / "result.json", out / "side.log"
+    result.unlink(missing_ok=True)
+    with open(log, "w") as f:
+        SIDE.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--side",
+             str(result)], stdout=f, stderr=subprocess.STDOUT))
+    return result, log
+
+
+def finish_side(result, log) -> dict:
+    """Wait for the side process, print its log, and return its result;
+    a side process that failed fails the smoke."""
+    rc = SIDE[0].wait()
+    SIDE.clear()
+    print(log.read_text(), end="", flush=True)
+    check(rc == 0, f"the side process (planners, fleet scale) exited {rc}")
+    return json.loads(result.read_text())
+
+
+def stop_side():
+    for proc in SIDE:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    SIDE.clear()
+
+
 def reset_all_counts():
     from aircraft_tpu_torch.kernels import cholesky, rollout, window
     from aircraft_tpu_torch.solvers import riccati
@@ -1887,7 +2151,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     try:
-        from aircraft_tpu_torch import bench
+        from aircraft_tpu_torch import bench, roofline
         from aircraft_tpu_torch.kernels import _build
         from aircraft_tpu_torch.kernels import window as win
     except ImportError as e:
@@ -1919,8 +2183,8 @@ def main() -> int:
         config.line_search_steps), device="cuda")
     occupancy(op, B)
     full = hold_kernels(op, inp, "B=256 N=50 nn", timing_reps=20)
-    work = {"window_backward": backward_work(op, B),
-            "window_forward": forward_work(op, B)}
+    work = {"window_backward": roofline.backward_work(op, B),
+            "window_forward": roofline.forward_work(op, B)}
 
     phase("window kernels on reversed-flow lanes, both coefficient models")
     for model in ("nn", "default"):
@@ -1929,21 +2193,26 @@ def main() -> int:
 
     phase("batched cholesky")
     chol, chol_all, chol_cm = cholesky_phase(ocp, z0s, us, inp)
-    work["batched_cholesky"] = cholesky_work(B, 7, 15)
+    work["batched_cholesky"] = roofline.cholesky_work(B, 7, 15)
 
     phase("fused rollout")
     roll = rollout_phase()
-    work["fused_rollout"] = rollout_work(1024, N, 10, roll["op"].mlp.numel())
+    work["fused_rollout"] = roofline.rollout_work(1024, N, 10,
+                                                  roll["op"].mlp.numel())
 
     phase("window kernels at serving shapes")
     serving = serving_holds(op, config)
+    # every device time of the kernels line is taken: from here the
+    # planners and the fleet scale run beside the other paths
+    side_result, side_log = start_side()
 
     phase("sync audit")
     sync_audit(ocp, us, inp)
 
     phase("path: fused serving chain")
     reset_all_counts()
-    head = bench.run_headline("cuda", batch=256, warmup=1, reps=1)
+    head = bench.run_headline("cuda", batch=256, warmup=1, reps=1,
+                              glide=mlp_glide())
     counts = bench.kernel_launches()
     print(json.dumps(head), flush=True)
     for name in ("window_backward", "window_forward"):
@@ -1990,11 +2259,13 @@ def main() -> int:
     reset_all_counts()
     t0 = time.perf_counter()
     ilqr_head = bench.run_headline("cuda", batch=256, warmup=0, reps=1,
-                                   solver="ilqr", cuda_chol=True)
+                                   solver="ilqr", cuda_chol=True,
+                                   glide=mlp_glide())
     ilqr_wall = time.perf_counter() - t0
     counts = bench.kernel_launches()
     print(json.dumps(ilqr_head), flush=True)
-    passes = ilqr_head["windows"] * config.max_al_iters * config.max_inner_iters
+    passes = (ilqr_head["windows"] * ilqr_head["al_iters"]
+              * ilqr_head["inner_iters"])
     n_chol = counts["batched_cholesky_solve"]
     print(f"iLQR chain: {ilqr_head['windows']} windows in {ilqr_wall:.1f} s "
           f"(cold window and set-up {ilqr_head['compile_s']} s, chained "
@@ -2064,21 +2335,15 @@ def main() -> int:
     phase("path: serving loop")
     serve_launches, _ = serving_loop_paths()
 
-    phase("path: planners")
-    plan_launches, plan, (a_sweep, rhs_sweep) = planners_paths()
-    _, _, sweep_rel = hold_cholesky_indefinite(
-        a_sweep, rhs_sweep, "candidate sweep's first Cholesky batch "
-        f"B={a_sweep.shape[0]} m={a_sweep.shape[1]} k={rhs_sweep.shape[2]} "
-        "(exact expansion)")
-    check(tuple(a_sweep.shape) == (8, 9, 9)
-          and tuple(rhs_sweep.shape) == (8, 9, 16),
-          f"candidate sweep's Cholesky batch {tuple(a_sweep.shape)}, "
-          f"{tuple(rhs_sweep.shape)}")
-
     phase("path: plant breadth")
     t0 = time.perf_counter()
     plant, plant_launches = plant_breadth()
     print(f"plant breadth: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("side process: planners and fleet scale (its log, its own clock)")
+    side = finish_side(side_result, side_log)
+    plan_launches, sweep_rel, fleet = (side["plan_launches"],
+                                       side["sweep_rel"], side["fleet"])
 
     phase("report")
     # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
@@ -2101,7 +2366,7 @@ def main() -> int:
     )
     kernels = []
     for name, replaces, err, ms, wms, plain_ms, lib_ms, lib_wms in rows:
-        bms, by = bound_ms(work[name])
+        bms, by = roofline.bound_ms(work[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aircraft_tpu_torch/csrc/{name}.cu",
@@ -2124,10 +2389,15 @@ def main() -> int:
         row["launches_by_path"] = {"fused_chain": row["launches"], **{
             path: counts[row["name"]] for path, counts in serve_launches.items()},
             "whole_warm_start": plan_launches["whole_warm_start"][row["name"]],
-            "plant_breadth_poly_window": plant_launches[row["name"]]}
+            "plant_breadth_poly_window": plant_launches[row["name"]],
+            **{path: fleet[path][row["name"]] for path in (
+                "roofline", "oppoints", "batched_mpc")}}
     kernels[2]["launches_by_path"] = {
         **launches["batched_cholesky_by_path"],
-        "planners_candidate_sweep": plan_launches["planners_candidate_sweep"]}
+        "planners_candidate_sweep": plan_launches["planners_candidate_sweep"],
+        **{path: fleet[path]["batched_cholesky_solve"] for path in (
+            "phase", "warm", "solve_batch_sharded", "seq_riccati_blocks",
+            "scaling")}}
     kernels[2]["max_err_indefinite"] = max(indef_rel, sweep_rel)
     kernels[2]["nonfinite_share_indefinite"] = indef_bad
     print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
@@ -2143,4 +2413,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        if sys.argv[1:2] == ["--side"]:
+            sys.exit(side_paths(sys.argv[2]))
+        sys.exit(main())
+    finally:
+        stop_side()

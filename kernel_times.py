@@ -9,7 +9,9 @@ phases (each kernel held against its plain version at the smoke's shapes,
 then timed) and prints the card's name and power limit and one JSON line
 of times in ms: `ms` the device time (torch.profiler), `graph_ms` the
 Cholesky kernel in a CUDA graph, `wrapper_ms` CUDA events around wrapper
-calls, `library_ms` the library factor-and-solve's device time.  Run in
+calls, `library_ms` the library factor-and-solve's device time, and
+`bound_ms` the least time the card could take (aircraft_tpu_torch/
+roofline.py, the counts chip_smoke.py uses).  Run in
 two checkouts in one call, on one card, it compares two versions of the
 kernels.  Without a card it exits non-zero and prints no times.
 
@@ -36,6 +38,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    from aircraft_tpu_torch import roofline
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--sweep", action="store_true",
                    help="only the host wall of one Riccati backward pass "
@@ -53,12 +57,14 @@ def main(argv=None) -> int:
     chol, chol_all, chol_cm = chip_smoke.cholesky_phase(ocp, z0s, us, inp)
     roll = chip_smoke.rollout_phase()
     keys = ("ms", "graph_ms", "wrapper_ms", "library_ms")
-    times = {name: {k: c[k] for k in keys}
+    times = {name: {**{k: c[k] for k in keys}, "bound_ms": c["bound"][0]}
              for name, c in (("batched_cholesky_B256_k15", chol),
                              ("batched_cholesky_B12800_k15", chol_all),
                              ("batched_cholesky_B12800_k8", chol_cm))}
-    times["fused_rollout_B1024_N50_ss10"] = {k: roll[k]
-                                             for k in ("ms", "wrapper_ms")}
+    times["fused_rollout_B1024_N50_ss10"] = {
+        **{k: roll[k] for k in ("ms", "wrapper_ms")},
+        "bound_ms": roofline.bound_ms(roofline.rollout_work(
+            1024, 50, 10, roll["op"].mlp.numel()))[0]}
     print(chip_smoke.smi_line())
     print(json.dumps(times))
     return 0

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
         "import importlib\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke, kernel_times\n"
+        "import chip_smoke, kernel_times, warm_fallbacks\n"
         "bad = sorted(m for m in sys.modules if m == 'aircraft_tpu' or"
         " m.startswith('aircraft_tpu.'))\n"
         "assert not bad, bad\n"
@@ -59,7 +59,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py", "kernel_times.py"])
+    + ["chip_smoke.py", "kernel_times.py", "warm_fallbacks.py"])
 def test_no_forbidden_imports(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & set(FORBIDDEN), sorted(roots & set(FORBIDDEN))
@@ -82,7 +82,8 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch.control import waypoints as wp
     from aircraft_tpu_torch.control.course import solve_full_course
     from aircraft_tpu_torch.control.initialisation import DubinsInitialiser
-    from aircraft_tpu_torch.examples import glider_time_probe
+    from aircraft_tpu_torch import parallel
+    from aircraft_tpu_torch.examples import batched_mpc, glider_time_probe
     from aircraft_tpu_torch.control.mhtt import MHTT
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
@@ -125,7 +126,18 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: co.load_coefficient_model(
                      "linear", co.NETWORKPATH / "linearised.csv"),
                  lambda: co.MLPCoeffParams.init(torch.Generator()),
-                 lambda: co.default_nn_coeff()):
+                 lambda: co.default_nn_coeff(),
+                 lambda: bench.bench_phase(),
+                 lambda: bench.bench_warm(),
+                 lambda: bench.bench_roofline(),
+                 lambda: bench.bench_oppoints(),
+                 lambda: bench.bench_scaling(),
+                 lambda: parallel.make_mesh(),
+                 lambda: parallel.make_seq_mesh(),
+                 lambda: parallel.spawn(print, 1),
+                 lambda: batched_mpc.run_fleet(),
+                 lambda: batched_mpc.main([]),
+                 lambda: batched_mpc.main(["--mesh"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
