@@ -186,13 +186,11 @@ def build_problem(device="cuda", *, coeff=None, seed=0, glide=None):
     return cfg, params, ocp, track, v_ref, spec
 
 
-def fleet_states(params, track, batch, v_ref, *, s_span=(0.1, 0.9), seed=0):
-    """`batch` gliders at the serving speed along the track (coordinated
-    turn attitude and rates of the track's state guess), and the trim
-    that seeds their controls.  Returns (z0s (B, 14), trim)."""
-    gen = torch.Generator().manual_seed(seed)
-    trim = multistart_trim(params, n_starts=32, target_airspeed=v_ref + 2.0,
-                           prefer_coordinated=True, generator=gen)
+def fleet_rows(track, batch, v_ref, *, s_span=(0.1, 0.9)) -> np.ndarray:
+    """(batch, 14) float32 stations along the track at the serving speed:
+    the track's state guess (coordinated-turn attitude and rates) at
+    progress spread over ``s_span``, the speed and rates scaled to
+    ``v_ref``, the progress in the last column."""
     M = 256
     guess = np.asarray(track.state_guess(M), np.float64)
     idx = np.round(np.linspace(s_span[0], s_span[1], batch) * M).astype(int)
@@ -201,7 +199,18 @@ def fleet_states(params, track, batch, v_ref, *, s_span=(0.1, 0.9), seed=0):
     scale = v_ref / np.maximum(speed0, 1e-6)
     rows[:, 3:6] *= scale
     rows[:, 10:13] *= scale
-    z = np.concatenate([rows, (idx / M)[:, None]], axis=1).astype(np.float32)
+    return np.concatenate([rows, (idx / M)[:, None]], axis=1).astype(
+        np.float32)
+
+
+def fleet_states(params, track, batch, v_ref, *, s_span=(0.1, 0.9), seed=0):
+    """`batch` gliders at the serving speed along the track
+    (``fleet_rows``), and the trim that seeds their controls.  Returns
+    (z0s (B, 14), trim)."""
+    gen = torch.Generator().manual_seed(seed)
+    trim = multistart_trim(params, n_starts=32, target_airspeed=v_ref + 2.0,
+                           prefer_coordinated=True, generator=gen)
+    z = fleet_rows(track, batch, v_ref, s_span=s_span)
     return torch.as_tensor(z, device=params.device), trim
 
 
@@ -220,38 +229,25 @@ def kernel_launches() -> dict:
     return counts
 
 
-def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
-                 inner_iters=12, ls=6, warmup=6, reps=3, seed=0,
-                 solver="fused", cuda_chol=False, row_penalty=True,
-                 reg_escalate=100.0, glide=None) -> dict:
-    """Cold window, `warmup` chained windows, then `reps` timed chained
-    windows; returns the headline record.  ``solver`` is ``"fused"`` (the
-    window kernels) or ``"ilqr"`` (``ilqr.solve_batch``, its Quu solves
-    on the batched-Cholesky kernel when ``cuda_chol``); ``row_penalty``
-    as ``headline_config``; ``glide`` as ``build_problem``."""
+def headline_chain(ocp, spec, config, us0, al0, *, horizon=N_HORIZON,
+                   solver="fused", cuda_chol=False):
+    """The serving chain's step: ``chain_step(z, us, al) -> (z, us, al,
+    sols)`` solves the fleet's window, commits ``horizon - OVERLAP`` knots
+    and carries the state, the shifted controls and the violation-gated
+    duals; a scenario whose window ends above ``RESET_VIOL`` restarts from
+    ``us0`` and ``al0``.  ``solver`` is ``"fused"`` (the window kernels)
+    or ``"ilqr"`` (``ilqr.solve_batch``, its Quu solves on the
+    batched-Cholesky kernel when ``cuda_chol``)."""
     if solver not in ("fused", "ilqr"):
         raise ValueError(f"solver={solver!r}")
     if cuda_chol and solver != "ilqr":
         raise ValueError("cuda_chol applies to solver='ilqr'")
-    dev = resolve_device(device)
-    t_setup = time.perf_counter()
-    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed,
-                                                         glide=glide)
-    config = headline_config(al_iters, inner_iters, ls,
-                             row_penalty=row_penalty,
-                             reg_escalate=reg_escalate)
-    z0s, trim = fleet_states(params, track, batch, v_ref, seed=seed)
-    u_trim = ocp.control_unsquash(trim.control[:7])
-    us0 = u_trim.reshape(1, 1, 7).expand(batch, horizon, 7).contiguous()
-    al0 = ocp_mod.init_al_state(ocp, z0s, us0[:, 0], horizon,
-                                mu0=config.penalty_init)
     if solver == "fused":
         solve = make_fused_solver(ocp, spec, horizon, config)
     else:
         def solve(z, us, al):
             return ilqr.solve_batch(ocp, z, us, config, al_inits=al,
                                     cuda_chol=cuda_chol)
-    setup_s = time.perf_counter() - t_setup
     commit = horizon - OVERLAP if horizon > OVERLAP else max(1, horizon // 2)
 
     def chain_step(z, us, al):
@@ -267,20 +263,65 @@ def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
         al_next = al_next.where(bad, al0)
         return z_next.contiguous(), us_next.contiguous(), al_next, sols
 
+    return chain_step
+
+
+def window_summary(violation, cost) -> dict:
+    """One window's fleet quality from its violations and costs (host
+    arrays), the headline's fields: converged fraction at 1e-2, mean
+    cost, mean violation, diverged fraction."""
+    viol = np.asarray(violation, np.float64)
+    cost = np.asarray(cost, np.float64)
+    return {"converged_fraction_1e2": float(np.mean(viol <= 1e-2)),
+            "mean_cost": float(np.nanmean(cost)),
+            "mean_violation": float(np.nanmean(viol)),
+            "diverged_fraction": float(np.mean(viol > RESET_VIOL))}
+
+
+def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
+                 inner_iters=12, ls=6, warmup=6, reps=3, seed=0,
+                 solver="fused", cuda_chol=False, row_penalty=True,
+                 reg_escalate=100.0, glide=None, on_window=None) -> dict:
+    """Cold window, `warmup` chained windows, then `reps` timed chained
+    windows; returns the headline record.  ``solver`` and ``cuda_chol``
+    as ``headline_chain``; ``row_penalty`` as ``headline_config``;
+    ``glide`` as ``build_problem``.  ``on_window(w, sols)``, when given,
+    is called after each window w = 0 .. warmup + reps (outside the timed
+    span) and adds nothing to the record."""
+    dev = resolve_device(device)
+    t_setup = time.perf_counter()
+    cfg, params, ocp, track, v_ref, spec = build_problem(dev, seed=seed,
+                                                         glide=glide)
+    config = headline_config(al_iters, inner_iters, ls,
+                             row_penalty=row_penalty,
+                             reg_escalate=reg_escalate)
+    z0s, trim = fleet_states(params, track, batch, v_ref, seed=seed)
+    u_trim = ocp.control_unsquash(trim.control[:7])
+    us0 = u_trim.reshape(1, 1, 7).expand(batch, horizon, 7).contiguous()
+    al0 = ocp_mod.init_al_state(ocp, z0s, us0[:, 0], horizon,
+                                mu0=config.penalty_init)
+    chain_step = headline_chain(ocp, spec, config, us0, al0, horizon=horizon,
+                                solver=solver, cuda_chol=cuda_chol)
+    setup_s = time.perf_counter() - t_setup
+    hook = on_window if on_window is not None else (lambda w, sols: None)
+
     t0 = time.perf_counter()
     z, us, al, sols = chain_step(z0s, us0, al0)
     _sync(dev)
     cold_s = time.perf_counter() - t0
     cold_viol = float(torch.nanmean(sols.violation))
-    for _ in range(warmup):
+    hook(0, sols)
+    for w in range(warmup):
         z, us, al, sols = chain_step(z, us, al)
+        hook(1 + w, sols)
     walls = []
-    for _ in range(reps):
+    for w in range(reps):
         _sync(dev)
         t0 = time.perf_counter()
         z, us, al, sols = chain_step(z, us, al)
         _sync(dev)
         walls.append(time.perf_counter() - t0)
+        hook(1 + warmup + w, sols)
     wall = float(np.median(walls))
 
     viol = sols.violation.detach().cpu().numpy()

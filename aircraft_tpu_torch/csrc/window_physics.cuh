@@ -118,6 +118,15 @@ __device__ __forceinline__ Dual tanh_(Dual x) {
   float t = tanhf(x.v);
   return Dual(t, x.d * (1.f - t * t));
 }
+// the control squash's tanh: exactly +-1 with zero slope from |x| =
+// TANH_ONE, as the reference's float32 tanh is (ops/elementwise.py)
+#define TANH_ONE 7.9989f
+__device__ __forceinline__ float sat_tanh_(float x) {
+  return fabsf(x) >= TANH_ONE ? copysignf(1.f, x) : tanhf(x);
+}
+__device__ __forceinline__ Dual sat_tanh_(Dual x) {
+  return fabsf(x.v) >= TANH_ONE ? Dual(copysignf(1.f, x.v), 0.f) : tanh_(x);
+}
 __device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ Dual atan2_(Dual y, Dual x) {
   float den = x.v * x.v + y.v * y.v;
@@ -349,7 +358,7 @@ __device__ __forceinline__ T knot(const WinConst& C, const Aero& aero,
   for (int c = 0; c < UD; ++c) {
     if (C.squash[0] == 0.f) u[c] = w[c];
     else if (C.squash_half[c] == 0.f) u[c] = T(C.squash_mid[c]);
-    else u[c] = C.squash_mid[c] + C.squash_half[c] * tanh_(w[c]);
+    else u[c] = C.squash_mid[c] + C.squash_half[c] * sat_tanh_(w[c]);
   }
   const float Linv = 1.f / C.L[0];
   const float* dm = C.dim_mask;

@@ -23,6 +23,8 @@ from aircraft_tpu_torch.dynamics.coefficients import (
 from aircraft_tpu_torch.ops import quaternion as quat
 from aircraft_tpu_torch.ops.elementwise import clip
 
+CONTROL_DIM = 7
+TRIM_CONTROL_DIM = 10
 AILERON, ELEVATOR, RUDDER = 0, 1, 2
 THRUST = slice(3, 6)
 FLAPS = 6
@@ -89,6 +91,10 @@ class AircraftParams:
     def device(self) -> torch.device:
         return self.mass.device
 
+    @property
+    def control_dim(self) -> int:
+        return TRIM_CONTROL_DIM if self.com_in_control else CONTROL_DIM
+
 
 def effective_com(params: AircraftParams, u: torch.Tensor) -> torch.Tensor:
     if params.com_in_control:
@@ -151,6 +157,21 @@ def _coefficients(params: AircraftParams, aero: AeroState, u):
     return torch.stack(cols, dim=-1)
 
 
+def coefficients(params: AircraftParams, x, u, wind=None) -> torch.Tensor:
+    """The six aero coefficients [CX, CY, CZ, Cl, Cm, Cn] at (x, u)."""
+    return _coefficients(params, aero_state(params, x, u, wind), u)
+
+
+def forces_frd(params: AircraftParams, x, u, wind=None) -> torch.Tensor:
+    """Body-frame aero forces (``forces_moments``' first half)."""
+    return forces_moments(params, x, u, wind)[0]
+
+
+def moments_frd(params: AircraftParams, x, u, wind=None) -> torch.Tensor:
+    """Body-frame moments about the CoM (``forces_moments``' second half)."""
+    return forces_moments(params, x, u, wind)[1]
+
+
 def forces_moments(params: AircraftParams, x, u, wind=None):
     """Body-frame aero forces (drag anti-aligned to the relative flow) and
     moments C q̄ S [b, c, b] (+ com × F), from one flow evaluation."""
@@ -180,5 +201,9 @@ def state_derivative(params: AircraftParams, x, u, wind=None) -> torch.Tensor:
                                       params.gravity)
 
 
-__all__ = ["AircraftParams", "aero_state", "forces_moments",
-           "state_derivative"]
+base.state_derivative.register(
+    AircraftParams, lambda p, x, u: state_derivative(p, x, u))
+base.control_dim.register(AircraftParams, lambda p: p.control_dim)
+
+__all__ = ["AircraftParams", "aero_state", "coefficients", "forces_frd",
+           "forces_moments", "moments_frd", "state_derivative"]

@@ -2,18 +2,46 @@
 
 State layout: x = [p_ned(3), v_ned(3), q_frd_ned(4, xyzw), omega_frd(3)]
 (13).  NED frame: z is down, gravity = [0, 0, +9.81].
+
+Every plant registers its parameter type with ``state_derivative`` and
+``control_dim``, the one entry point the integrators and the controllers
+call for any plant.
 """
 
 from __future__ import annotations
+
+from functools import singledispatch
+from typing import Any
 
 import torch
 
 from aircraft_tpu_torch.ops import quaternion as quat
 
+STATE_DIM = 13
 POS = slice(0, 3)
 VEL = slice(3, 6)
 QUAT = slice(6, 10)
 OMEGA = slice(10, 13)
+
+
+def position(x: torch.Tensor) -> torch.Tensor:
+    return x[..., POS]
+
+
+def velocity(x: torch.Tensor) -> torch.Tensor:
+    return x[..., VEL]
+
+
+def orientation(x: torch.Tensor) -> torch.Tensor:
+    return x[..., QUAT]
+
+
+def angular_velocity(x: torch.Tensor) -> torch.Tensor:
+    return x[..., OMEGA]
+
+
+def pack_state(p, v, q, omega) -> torch.Tensor:
+    return torch.cat([p, v, q, omega], dim=-1)
 
 
 def normalize_quaternion_state(x: torch.Tensor) -> torch.Tensor:
@@ -65,3 +93,15 @@ def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([(inv[i][0] * b0 + inv[i][1] * b1 + inv[i][2] * b2)
                         / det for i in range(3)], dim=-1)
+
+
+@singledispatch
+def state_derivative(params: Any, x: torch.Tensor,
+                     u: torch.Tensor) -> torch.Tensor:
+    """ẋ = f(x, u; params), registered per plant-parameter type."""
+    raise TypeError(f"no dynamics registered for {type(params)}")
+
+
+@singledispatch
+def control_dim(params: Any) -> int:
+    raise TypeError(f"no control dimension registered for {type(params)}")

@@ -62,7 +62,7 @@ from aircraft_tpu_torch.dynamics.coefficients import (
     fold_mlp,
 )
 from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
-from aircraft_tpu_torch.ops.elementwise import clip
+from aircraft_tpu_torch.ops.elementwise import clip, saturating_tanh
 from aircraft_tpu_torch.solvers.ilqr import FREEZE_PENALTY, line_search_alphas
 
 XD = 14          # augmented state [x(13), s]
@@ -442,7 +442,7 @@ def _squash(op: WindowOperands, w):
             cols.append(torch.zeros_like(w[..., c]) + ws.squash_mid[c])
         else:
             cols.append(ws.squash_mid[c] + ws.squash_half[c]
-                        * torch.tanh(w[..., c]))
+                        * saturating_tanh(w[..., c]))
     return torch.stack(cols, dim=-1)
 
 

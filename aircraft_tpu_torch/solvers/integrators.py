@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from aircraft_tpu_torch.dynamics import aircraft, base
+from aircraft_tpu_torch.dynamics import base
 from aircraft_tpu_torch.dynamics.base import OMEGA, QUAT
 from aircraft_tpu_torch.ops import quaternion as quat
 from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
@@ -58,8 +58,10 @@ def _check_normalize(normalize: str):
 
 
 def _plant(params, derivative_fn):
+    """The plant's derivative: ``derivative_fn``, else the one registered
+    for the type of ``params`` (``base.state_derivative``)."""
     return (derivative_fn if derivative_fn is not None
-            else partial(aircraft.state_derivative, params))
+            else partial(base.state_derivative, params))
 
 
 def step(params, x: torch.Tensor, u: torch.Tensor, dt, *, substeps: int = 1,

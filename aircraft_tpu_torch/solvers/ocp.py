@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from aircraft_tpu_torch.device import resolve_device
-from aircraft_tpu_torch.ops.elementwise import clip
+from aircraft_tpu_torch.ops.elementwise import clip, saturating_tanh
 
 
 def _zero_vec(x, u, k):
@@ -49,7 +49,8 @@ class OCPFunctions:
 
 
 def make_squash_maps(lb, ub, *, margin: float = 0.999, device="cuda"):
-    """(squash, unsquash) for a control box: u = mid + half·tanh(w)."""
+    """(squash, unsquash) for a control box: u = mid + half·tanh(w), the
+    tanh saturating as the reference's does (``saturating_tanh``)."""
     dev = resolve_device(device)
     lb = torch.as_tensor(lb, dtype=torch.float32, device=dev)
     ub = torch.as_tensor(ub, dtype=torch.float32, device=dev)
@@ -59,7 +60,7 @@ def make_squash_maps(lb, ub, *, margin: float = 0.999, device="cuda"):
     live = (half > 0).to(torch.float32)
 
     def squash(w):
-        return mid + half * torch.tanh(w)
+        return mid + half * saturating_tanh(w)
 
     def unsquash(u):
         return torch.atanh(clip((u - mid) / safe_half, -margin, margin)) * live

@@ -5,6 +5,12 @@ z = [v_ned(3), rotvec(3), aileron, elevator, rudder, com(3)].
 Orientation is a rotation vector, so the unit-quaternion constraint
 vanishes; body rates are pinned to 0; box constraints are projections.
 Every start of a multistart is one row of one batched solve.
+
+The stability analysis around a trim point (``continuous_jacobians`` ...
+``discrete_stability_analysis``) takes the spectra of the continuous
+Jacobian and of the RK4 step map's, over a cloud of perturbed states and
+a sweep of time steps, each cloud as one batch; only the 13x13
+eigendecompositions run on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from aircraft_tpu_torch.device import resolve_device
 from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
 from aircraft_tpu_torch.ops import quaternion as quat
 from aircraft_tpu_torch.ops.autodiff import batched_jacfwd
+from aircraft_tpu_torch.solvers import integrators
+from aircraft_tpu_torch.utils import perturb_quaternion
 
 _NZ = 12
 
@@ -188,3 +196,106 @@ def multistart_trim(params: AircraftParams, z0s: Optional[torch.Tensor] = None,
             score = torch.where(sols.residual < 1e-3, dv,
                                 1e6 + sols.residual)
     return _take(sols, int(torch.argmin(score)))
+
+
+def _rows(state, control):
+    """state and control broadcast to rows (B, ·), and the leading shape."""
+    lead = torch.broadcast_shapes(state.shape[:-1], control.shape[:-1])
+    return (state.expand(lead + state.shape[-1:]).reshape(
+                -1, state.shape[-1]).contiguous(),
+            control.expand(lead + control.shape[-1:]).reshape(
+                -1, control.shape[-1]).contiguous(), lead)
+
+
+def continuous_jacobians(params: AircraftParams, state, control):
+    """A = ∂f/∂x, B = ∂f/∂u of the continuous dynamics at a point (or at
+    each point of leading axes)."""
+    x, u, lead = _rows(state, control)
+    J = batched_jacfwd(lambda xx, uu: ac.state_derivative(params, xx, uu),
+                       x, u)
+    J = J.reshape(lead + J.shape[1:])
+    return J[..., :x.shape[-1]], J[..., x.shape[-1]:]
+
+
+def stability_eigenvalues(params: AircraftParams, state, control):
+    """Eigenvalues of the continuous-time Jacobian at (state, control),
+    decomposed on the host in float64."""
+    A, _ = continuous_jacobians(params, state, control)
+    return np.linalg.eigvals(A.detach().cpu().numpy().astype(np.float64))
+
+
+def discrete_jacobians(params: AircraftParams, state, control, dt,
+                       substeps: int = 1):
+    """A_d = ∂F/∂x, B_d = ∂F/∂u of the RK4 step map F(x, u, dt), over the
+    leading axes of state, control and a tensor dt."""
+    x, u, lead = _rows(state, control)
+    if isinstance(dt, torch.Tensor) and dt.ndim:
+        lead = torch.broadcast_shapes(lead, dt.shape)
+        x = x.expand(lead + x.shape[-1:]).reshape(-1, x.shape[-1]).clone()
+        u = u.expand(lead + u.shape[-1:]).reshape(-1, u.shape[-1]).clone()
+        dt = dt.expand(lead).reshape(-1).clone()
+
+    def step(xx, uu):
+        return integrators.step(params, xx, uu, dt, substeps=substeps)
+
+    J = batched_jacfwd(step, x, u)
+    J = J.reshape(lead + J.shape[1:])
+    return J[..., :x.shape[-1]], J[..., x.shape[-1]:]
+
+
+class DiscreteStabilityReport(NamedTuple):
+    """Spectra of the discrete step map around an operating point."""
+
+    eigenvalues: np.ndarray         # (n_perturb, 13) complex
+    spectral_radius: np.ndarray     # (n_perturb,) max |eig| per point
+    condition_numbers: np.ndarray   # (n_perturb,) cond(A_d) per point
+    dt_sweep: np.ndarray            # (n_dt,) time steps of the sweep
+    dt_spectral_radius: np.ndarray  # (n_dt,) max |eig| at the nominal point
+
+
+def perturbation_cloud(state, n_perturb: int = 25, state_delta: float = 0.1,
+                       quat_delta: float = 0.01, seed: int = 0) -> np.ndarray:
+    """(n_perturb, 13) float32 states: ``state`` offset by a linear ramp
+    of ±state_delta in every component, each quaternion replaced by a
+    random rotation of quat_delta from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    state = np.asarray(state, dtype=np.float32)
+    cloud = np.repeat(state[None], n_perturb, axis=0)
+    cloud += np.linspace(-state_delta, state_delta, n_perturb)[:, None]
+    for i in range(n_perturb):
+        cloud[i, 6:10] = perturb_quaternion(state[6:10], quat_delta, rng=rng)
+    return cloud
+
+
+def discrete_stability_analysis(params: AircraftParams, state, control,
+                                dt: float = 0.01, n_perturb: int = 25,
+                                state_delta: float = 0.1,
+                                quat_delta: float = 0.01, dt_sweep=None,
+                                seed: int = 0,
+                                device="cuda") -> DiscreteStabilityReport:
+    """Eigenvalues and condition numbers of the discrete dynamics over a
+    cloud of perturbed states (``perturbation_cloud``), and the spectral
+    radius at the nominal point over a log-spaced dt sweep; each cloud is
+    one batched Jacobian, the eigendecompositions run on the host."""
+    dev = resolve_device(device)
+    if params.device != dev:
+        params = params.to(dev)
+    state_np = np.asarray(torch.as_tensor(state).detach().cpu(), np.float32)
+    control = torch.as_tensor(control, dtype=torch.float32, device=dev)
+    cloud = torch.as_tensor(perturbation_cloud(
+        state_np, n_perturb, state_delta, quat_delta, seed), device=dev)
+    A_cloud, _ = discrete_jacobians(params, cloud, control, dt)
+    A_cloud = A_cloud.detach().cpu().numpy().astype(np.float64)
+    eigs = np.linalg.eigvals(A_cloud)
+    if dt_sweep is None:
+        dt_sweep = np.logspace(-4, 0, 20)
+    dts = torch.as_tensor(np.asarray(dt_sweep, np.float32), device=dev)
+    A_dts, _ = discrete_jacobians(params, torch.as_tensor(state_np,
+                                                          device=dev),
+                                  control, dts)
+    dt_radius = np.abs(np.linalg.eigvals(
+        A_dts.detach().cpu().numpy().astype(np.float64))).max(axis=-1)
+    return DiscreteStabilityReport(
+        eigenvalues=eigs, spectral_radius=np.abs(eigs).max(axis=-1),
+        condition_numbers=np.linalg.cond(A_cloud),
+        dt_sweep=np.asarray(dt_sweep), dt_spectral_radius=dt_radius)

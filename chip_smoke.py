@@ -26,7 +26,12 @@ must pass or the script exits non-zero without a result line:
               (B=256) and of every knot (B=12800) of one backward sweep of
               the fleet (m=7, k=15), and on the chol bench mode's batch
               (B=12800, m=7, k=8), each timed beside one library
-              factor-and-solve of the same systems;
+              factor-and-solve of the same systems; and at the
+              quadrotor's shapes, one system per knot (k = 14): every
+              knot's system of the first backward pass of a fixed-time
+              solve (m = 4) and of the free-time refinement (m = 5, its
+              indefinite knots non-finite in both, the reference's
+              fallback rule), 60 systems each, from a 1 x 1 solve;
 5. rollout  - the fused rollout kernel at B=1024, N=50, 10 substeps: every
               knot replayed from the kernel's own previous state through
               the plain step within 2e-4 (1 + |ref|), the whole
@@ -49,9 +54,16 @@ must pass or the script exits non-zero without a result line:
               ("sync audit: <what>: <error>"); a clean call prints
               "sync audit: <what>: no synchronising call";
 7. paths    - each path with every launch counter reset just before and
-              read just after: the fused serving chain (python -m
-              aircraft_tpu_torch.bench, a cold window and two chained
-              windows); one fused and one iLQR inner iteration timed
+              read just after: the fused serving chain at the bench's
+              default depth (python -m aircraft_tpu_torch.bench: a cold
+              window, 6 warm-up and 3 timed chained windows at B=256),
+              each window's converged fraction, mean cost and mean
+              violation on a line of its own, each window kernel launched
+              once per inner iteration, finite fraction 1.0, the gate
+              printed and not held (the set-up the card's trim searches
+              find misses it in the reference's own chain too,
+              chain_crossing.py);
+              one fused and one iLQR inner iteration timed
               piece by piece (host wall; the device's busy share from
               torch.profiler), and one backward pass on each Quu-solve
               route; the iLQR chain (--solver ilqr --cuda-chol: a cold and
@@ -129,7 +141,18 @@ must pass or the script exits non-zero without a result line:
               summary bit for bit, 50 launches per backward pass;
               batched_mpc at batch 64 for 2 windows (N=25, 2 substeps,
               2 x 10), each window kernel launched once per inner
-              iteration of every window solve.  Cuts, never a width or a
+              iteration of every window solve; then the quadrotor's
+              time-optimal solve (examples/time_optimal_quad.py's goal,
+              N=60, the six scales and the two free-time refinements) on
+              the Cholesky kernel route at 1 x 3: exactly N launches per
+              backward pass of its eight solves; and, in the main
+              process after the plant breadth, the estimator, the LQR and
+              the stability analysis on the card against the same code on
+              the CPU within 2e-4 (1 + |ref|): one estimate_wind (W=20),
+              one LQR design about the default-aero trim with one
+              closed_loop_step of 8 states, one
+              discrete_stability_analysis (25 states, 20 time steps).
+              Cuts, never a width or a
               shape: the phase mode's reps 5 -> 2; the warm mode's 6 warm
               windows -> 2; the roofline mode's reps 3 -> 2; oppoints'
               six points -> two, warmup 6 -> 0, reps 3 -> 1; the scaling
@@ -139,7 +162,8 @@ must pass or the script exits non-zero without a result line:
    plant's best glide, found once per process (mlp_glide): its three trim
    searches took ~8 s at each of a dozen call sites.  Once the kernels'
    device times are taken (after the serving shapes), the planners and
-   the fleet scale run in a second process on the same card
+   the fleet scale (and the quadrotor) run in a second process on the
+   same card
    (chip_smoke.py --side RESULT, its own counts and clock) beside the
    other paths, to keep the smoke within its limit; its log is printed
    after the plant breadth, and its failure fails the smoke.  Every
@@ -202,13 +226,19 @@ def mlp_glide(device="cuda"):
     handed to every bench entry point that builds the headline problem
     (``bench.plant_best_glide``: three trim searches, ~8 s on the card)."""
     from aircraft_tpu_torch import bench
+
+    return bench.plant_best_glide(fleet_problem_params(device))
+
+
+def fleet_problem_params(device="cuda"):
+    """The headline plant's parameters (the trained MLP) on ``device``."""
     from aircraft_tpu_torch.config import glider_config
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
 
-    return bench.plant_best_glide(AircraftParams.from_config(
-        glider_config().aircraft, coeff=load_mlp(device=device),
-        device=device))
+    return AircraftParams.from_config(glider_config().aircraft,
+                                      coeff=load_mlp(device=device),
+                                      device=device)
 
 
 def rel_err(a, ref):
@@ -592,7 +622,6 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
     plain version's and one library factor-and-solve's times."""
     import torch
 
-    from aircraft_tpu_torch import bench, roofline
     from aircraft_tpu_torch.kernels import cholesky
 
     x = cholesky.batched_cholesky_solve(a, rhs)
@@ -605,22 +634,33 @@ def hold_cholesky(a, rhs, label, timing_reps=0):
     check(ok, f"{label}: kernel and plain version differ by {err}")
     out = {"err": err}
     if timing_reps:
-        kern = lambda: cholesky.batched_cholesky_solve(a, rhs)
-        lib = lambda: bench.library_cholesky_solve(a, rhs)
-        out["wrapper_ms"] = cuda_ms(kern, timing_reps)
-        out["ms"] = device_ms(kern, timing_reps, K5_ENTRIES)
-        out["graph_ms"] = graph_ms(kern, timing_reps)
-        out["plain_ms"] = cuda_ms(lambda: cholesky.cholesky_solve_plain(a, rhs),
-                                  timing_reps)
-        out["library_wrapper_ms"] = cuda_ms(lib, timing_reps)
-        out["library_ms"] = device_ms(lib, timing_reps)
-        out["bound"] = roofline.bound_ms(roofline.cholesky_work(*rhs.shape))
-        print(f"{label}: kernel device {out['ms']:.5f} ms, in a CUDA graph "
-              f"{out['graph_ms']:.5f} ms, wrapper {out['wrapper_ms']:.5f} ms; "
-              f"plain {out['plain_ms']:.4f} ms; library device "
-              f"{out['library_ms']:.5f} ms, call "
-              f"{out['library_wrapper_ms']:.4f} ms; bound "
-              f"{out['bound'][0]:.6f} ms ({out['bound'][1]})", flush=True)
+        out.update(cholesky_times(a, rhs, label, timing_reps))
+    return out
+
+
+def cholesky_times(a, rhs, label, timing_reps):
+    """The batched-Cholesky kernel's, its plain version's and one library
+    factor-and-solve's times on (a, rhs), and the bound."""
+    from aircraft_tpu_torch import bench, roofline
+    from aircraft_tpu_torch.kernels import cholesky
+
+    out = {}
+    kern = lambda: cholesky.batched_cholesky_solve(a, rhs)
+    lib = lambda: bench.library_cholesky_solve(a, rhs)
+    out["wrapper_ms"] = cuda_ms(kern, timing_reps)
+    out["ms"] = device_ms(kern, timing_reps, K5_ENTRIES)
+    out["graph_ms"] = graph_ms(kern, timing_reps)
+    out["plain_ms"] = cuda_ms(lambda: cholesky.cholesky_solve_plain(a, rhs),
+                              timing_reps)
+    out["library_wrapper_ms"] = cuda_ms(lib, timing_reps)
+    out["library_ms"] = device_ms(lib, timing_reps)
+    out["bound"] = roofline.bound_ms(roofline.cholesky_work(*rhs.shape))
+    print(f"{label}: kernel device {out['ms']:.5f} ms, in a CUDA graph "
+          f"{out['graph_ms']:.5f} ms, wrapper {out['wrapper_ms']:.5f} ms; "
+          f"plain {out['plain_ms']:.4f} ms; library device "
+          f"{out['library_ms']:.5f} ms, call "
+          f"{out['library_wrapper_ms']:.4f} ms; bound "
+          f"{out['bound'][0]:.6f} ms ({out['bound'][1]})", flush=True)
     return out
 
 
@@ -1717,6 +1757,213 @@ def planners_paths():
     return launches, records, first[0]
 
 
+QUAD_TARGET = [30.0, 20.0, -15.0]   # examples/time_optimal_quad.py's goal
+QUAD_BUDGET = (1, 3)     # the example's 6 x 25, cut
+
+
+QUAD_N = 60
+QUAD_SCALES = (0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+
+
+def _quad_solve(scales, al_iters, inner_iters, capture_first=None):
+    """``solve_quadrotor_time_optimal`` at N=60 on the Cholesky kernel
+    route; ``capture_first`` (a dict) gathers each m's first N systems
+    as the sweep hands them to the kernel.  Returns (result, wall)."""
+    import torch
+
+    from aircraft_tpu_torch.config import SolverConfig
+    from aircraft_tpu_torch.control.quadrotor import (
+        solve_quadrotor_time_optimal)
+    from aircraft_tpu_torch.solvers import riccati
+
+    cut = SolverConfig(max_al_iters=al_iters, max_inner_iters=inner_iters,
+                       hessian="gauss_newton")
+    real_kernel = riccati.batched_cholesky_solve
+
+    def capture(a, rhs):
+        got = capture_first.setdefault(a.shape[-1], [])
+        if len(got) < QUAD_N:
+            got.append((a.clone(), rhs.clone()))
+        return real_kernel(a, rhs)
+
+    if capture_first is not None:
+        riccati.batched_cholesky_solve = capture
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_quadrotor_time_optimal(
+            QUAD_TARGET, num_nodes=QUAD_N, scales=scales, solver_config=cut,
+            cuda_chol=True, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        riccati.batched_cholesky_solve = real_kernel
+
+
+def quadrotor_holds():
+    """The batched-Cholesky kernel at the quadrotor's shapes, one system
+    per knot (k = 1 + n = 14): every knot's system of the first backward
+    pass of a fixed-time solve (m = 4) and of the free-time refinement
+    (m = 5), from a 1 x 1 solve at the nominal scale, each held against
+    the plain version as one batch of 60 (at m = 5 the free-time cost's
+    indefinite knots non-finite in both, the reference's fallback rule)
+    and timed beside one library factor-and-solve.  Returns holds by m."""
+    import torch
+
+    first = {}
+    _quad_solve((1.0,), 1, 1, capture_first=first)
+    holds = {}
+    for m in (4, 5):
+        check(len(first.get(m, ())) == QUAD_N,
+              f"quadrotor: {len(first.get(m, ()))} m={m} systems captured")
+        a = torch.cat([x for x, _ in first[m]]).contiguous()
+        rhs = torch.cat([r for _, r in first[m]]).contiguous()
+        check(tuple(a.shape) == (QUAD_N, m, m)
+              and tuple(rhs.shape) == (QUAD_N, m, 14),
+              f"quadrotor: m={m} systems {tuple(a.shape)}, {tuple(rhs.shape)}")
+        label = (f"quadrotor first backward pass, every knot's system "
+                 f"(B={QUAD_N}, m={m}, k=14)")
+        if m == 4:
+            holds[m] = hold_cholesky(a, rhs, label, timing_reps=20)
+        else:
+            # the free-time stage cost W·ν²·|u|² has an indefinite Hessian
+            # in (u, ν): its knots may fall back, by the reference's rule
+            _, bad, worst = hold_cholesky_indefinite(a, rhs, label)
+            holds[m] = {"rel_err": worst, "nonfinite_share": bad,
+                        **cholesky_times(a, rhs, label, 20)}
+    return holds
+
+
+def quadrotor_path():
+    """The quadrotor's time-optimal solve at its full width (N=60, the six
+    scales of the ladder, then the two free-time refinements) with every
+    Quu solve on the Cholesky kernel route, cut to 1 x 3: exactly N
+    launches per backward pass of its eight solves (m = 4 in the ladder,
+    m = 5 in the refinements).  The fallbacks are printed: the m = 5
+    solves take them by design.  Returns (launches, record)."""
+    import torch
+
+    from aircraft_tpu_torch.kernels import cholesky
+    from aircraft_tpu_torch.solvers import riccati
+
+    reset_all_counts()
+    out, wall = _quad_solve(QUAD_SCALES, *QUAD_BUDGET)
+    n_chol = cholesky.batched_cholesky_solve.launches
+    solves = len(QUAD_SCALES) + 2
+    want = QUAD_N * solves * QUAD_BUDGET[0] * QUAD_BUDGET[1]
+    sol = out["solution"]
+    rec = {"wall_s": wall, "cholesky_launches": n_chol, "expected": want,
+           "chol_fallbacks": riccati.read_fallbacks(),
+           "feasible": [r["feasible"] for r in out["candidates"]],
+           "dt_uniform": out["dt_uniform"], "T_final": out["T_final"],
+           "T_variable": out["T_variable"],
+           "finite": bool(torch.isfinite(sol.xs).all()
+                          and torch.isfinite(sol.us).all())}
+    print(f"quadrotor: time-optimal N={QUAD_N}, {len(QUAD_SCALES)} scales + "
+          f"2 free-time solves, {QUAD_BUDGET[0]} x {QUAD_BUDGET[1]}, "
+          "Cholesky kernel route: " + json.dumps(rec), flush=True)
+    check(n_chol == want, f"quadrotor: {n_chol} Cholesky launches, expected "
+          f"{want} ({QUAD_N} per backward pass of {solves} solves)")
+    check(rec["finite"] and len(rec["feasible"]) == len(QUAD_SCALES),
+          f"quadrotor: {rec}")
+    return {"quadrotor_time_optimal": n_chol}, rec
+
+
+CONTROL_TOL = 2e-4   # card against CPU, of 1 + |ref|
+
+
+def control_pieces():
+    """The estimator, the LQR and the stability analysis, each on the card
+    against the same code on the CPU, within CONTROL_TOL (1 + |ref|): one
+    ``estimate_wind`` (W=20 measurements flown on the CPU in a known
+    wind), one LQR design about the default-aero glider's 50 m/s trim
+    with one ``closed_loop_step`` of 8 perturbed states, and one
+    ``discrete_stability_analysis`` (25 perturbed states, the 20-point dt
+    sweep; eigenvalues matched to their nearest partner).  No kernel of
+    the port runs here."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control.mhe import estimate_wind
+    from aircraft_tpu_torch.dynamics import aircraft as ac
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.solvers import integrators, lqr
+    from aircraft_tpu_torch.solvers import trim as trim_mod
+
+    def held(label, out, ref):
+        out = np.asarray(out, np.complex128 if np.iscomplexobj(out)
+                         else np.float64)
+        ref = np.asarray(ref, out.dtype)
+        err = float(np.max(np.abs(out - ref) / (1.0 + np.abs(ref))))
+        print(f"control on the card: {label}: max err over (1 + |ref|) "
+              f"{err:.3e} (tol {CONTROL_TOL})", flush=True)
+        check(err <= CONTROL_TOL, f"{label}: card and CPU differ by {err}")
+        return err
+
+    cfg = glider_config()
+    cpu = AircraftParams.from_config(cfg.aircraft, device="cpu")
+    wind = torch.tensor([4.0, -3.0, 0.5])
+    step = integrators.make_step_fn(
+        cpu, substeps=2, normalize="step",
+        derivative_fn=lambda x, u: ac.state_derivative(cpu, x, u, wind=wind))
+    gen = torch.Generator().manual_seed(0)
+    us = torch.zeros(20, 7)
+    us[:, :3] = 2.0 * torch.rand((20, 3), generator=gen) - 1.0
+    xs = [torch.tensor(cfg.waypoints.initial_state, dtype=torch.float32)]
+    for u in us:
+        xs.append(step(xs[-1], u, 0.02))
+    xs = torch.stack(xs)
+    errs = {}
+    t0 = time.perf_counter()
+    card = estimate_wind(cpu, xs.cuda(), us.cuda(), 0.02, 2, 8, device="cuda")
+    ref = estimate_wind(cpu, xs, us, 0.02, 2, 8, device="cpu")
+    errs["estimate_wind"] = held("estimate_wind (W=20)", card.wind.cpu(),
+                                 ref.wind)
+    print(f"estimate_wind: card {card.wind.cpu().numpy().round(5).tolist()}, "
+          f"CPU {ref.wind.numpy().round(5).tolist()}, true "
+          f"{wind.numpy().tolist()}", flush=True)
+
+    trim_p = AircraftParams.from_config(cfg.aircraft, com_in_control=True,
+                                        device="cpu")
+    res = trim_mod.multistart_trim(trim_p, n_starts=16, target_airspeed=50.0,
+                                   generator=torch.Generator().manual_seed(0))
+    check(float(res.residual) < 1e-2, f"trim residual {float(res.residual)}")
+    plant = replace(cpu, com=res.control[7:10].clone())
+    x_ref, u_ref = res.state, res.control[:7]
+    c_card = lqr.design(plant, x_ref, u_ref, dt=0.01, substeps=2,
+                        device="cuda")
+    c_cpu = lqr.design(plant, x_ref, u_ref, dt=0.01, substeps=2, device="cpu")
+    errs["lqr_gain"] = held("LQR gain K (12 x 7)", c_card.K.cpu(), c_cpu.K)
+    xi = 0.05 * torch.randn((8, 12), generator=gen)
+    x0 = lqr.inject(x_ref, xi)
+    x1_card, _ = lqr.closed_loop_step(plant.to("cuda"), c_card, 0.01,
+                                      substeps=2)(x0.cuda())
+    x1_cpu, _ = lqr.closed_loop_step(plant, c_cpu, 0.01, substeps=2)(x0)
+    errs["closed_loop_step"] = held("closed_loop_step (8 states)",
+                                    x1_card.cpu(), x1_cpu)
+
+    r_card = trim_mod.discrete_stability_analysis(
+        trim_p, res.state, res.control, dt=0.01, n_perturb=25, device="cuda")
+    r_cpu = trim_mod.discrete_stability_analysis(
+        trim_p, res.state, res.control, dt=0.01, n_perturb=25, device="cpu")
+    pair = np.stack([e_card[np.argmin(np.abs(e_card[None, :] - e[:, None]),
+                                      axis=1)]
+                     for e_card, e in zip(r_card.eigenvalues,
+                                          r_cpu.eigenvalues)])
+    errs["stability_eigenvalues"] = held(
+        "discrete_stability_analysis eigenvalues (25 x 13)", pair,
+        r_cpu.eigenvalues)
+    errs["stability_dt_radius"] = held(
+        "discrete_stability_analysis dt-sweep spectral radius (20)",
+        r_card.dt_spectral_radius, r_cpu.dt_spectral_radius)
+    print(f"control on the card: {time.perf_counter() - t0:.1f} s; spectral "
+          f"radius {r_card.spectral_radius.min():.5f}.."
+          f"{r_card.spectral_radius.max():.5f}", flush=True)
+    return errs
+
+
 # the plant-breadth phase: (model, quaternion, substeps, integration) rows
 # of the ablation grid at its full width (glider, N=40, dt=0.05, goal
 # +[120, 20, 10] m, trim warm start), cut to 1 x 2 iterations
@@ -2092,9 +2339,12 @@ def side_paths(result_path) -> int:
     t0 = time.perf_counter()
     fleet = fleet_scale()
     print(f"fleet scale: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("path: quadrotor time-optimal on the Cholesky kernel")
+    quad_launches, _ = quadrotor_path()
     Path(result_path).write_text(json.dumps({
         "plan_launches": plan_launches, "sweep_rel": sweep_rel,
-        "fleet": fleet}))
+        "fleet": fleet, "quad_launches": quad_launches}))
     return 0
 
 
@@ -2132,6 +2382,14 @@ def stop_side():
             proc.kill()
             proc.wait()
     SIDE.clear()
+
+
+def print_window(w, sols):
+    """``run_headline``'s per-window hook: one line per chained window."""
+    from aircraft_tpu_torch import bench
+
+    print(f"chain window {w}: " + json.dumps(bench.window_summary(
+        sols.violation.cpu().numpy(), sols.cost.cpu().numpy())), flush=True)
 
 
 def reset_all_counts():
@@ -2195,6 +2453,9 @@ def main() -> int:
     chol, chol_all, chol_cm = cholesky_phase(ocp, z0s, us, inp)
     work["batched_cholesky"] = roofline.cholesky_work(B, 7, 15)
 
+    phase("batched cholesky at the quadrotor's shapes")
+    quad_holds = quadrotor_holds()
+
     phase("fused rollout")
     roll = rollout_phase()
     work["fused_rollout"] = roofline.rollout_work(1024, N, 10,
@@ -2209,17 +2470,38 @@ def main() -> int:
     phase("sync audit")
     sync_audit(ocp, us, inp)
 
-    phase("path: fused serving chain")
+    phase("path: fused serving chain at the bench's default depth")
+    from aircraft_tpu_torch.control.course import course_track
+    from aircraft_tpu_torch.config import glider_config
+
+    glide = mlp_glide()
+    _, trim = bench.fleet_states(fleet_problem_params(), course_track(
+        glider_config(), v_ref=glide[0], glide_ld=glide[1]), 1, glide[0])
+    print("the port's set-up on the card: v_ref, glide_ld "
+          f"{json.dumps([round(g, 6) for g in glide])}, fleet trim control "
+          f"{json.dumps(trim.control.cpu().numpy().round(5).tolist())}",
+          flush=True)
     reset_all_counts()
-    head = bench.run_headline("cuda", batch=256, warmup=1, reps=1,
-                              glide=mlp_glide())
+    head = bench.run_headline("cuda", batch=256, glide=mlp_glide(),
+                              on_window=print_window)
     counts = bench.kernel_launches()
     print(json.dumps(head), flush=True)
+    per_window = head["al_iters"] * head["inner_iters"]
     for name in ("window_backward", "window_forward"):
-        check(counts[name] > 0, f"fused chain never launched {name}")
+        check(counts[name] == head["windows"] * per_window,
+              f"fused chain launched {name} {counts[name]} times, expected "
+              f"{per_window} per window of {head['windows']}")
     check(head["finite_fraction"] == 1.0,
           f"fused chain finite_fraction {head['finite_fraction']}")
     check(head["fused_kernels"], "fused chain did not run the kernels")
+    # the gate is printed, not held: the set-up is found by trim searches
+    # whose end points rounding decides, and on the set-up they find on
+    # the card the reference's own chain misses the gate too
+    # (chain_crossing.py, set-up "card")
+    print(f"fused chain at {head['windows']} windows: gate "
+          f"{head['feasibility_gate_95pct_1e2_passed']} "
+          f"(converged_fraction_1e2 {head['converged_fraction_1e2']})",
+          flush=True)
     launches = {name: counts[name] for name in ("window_backward",
                                                 "window_forward")}
 
@@ -2340,10 +2622,15 @@ def main() -> int:
     plant, plant_launches = plant_breadth()
     print(f"plant breadth: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("side process: planners and fleet scale (its log, its own clock)")
+    phase("path: estimator, LQR and stability analysis, card against CPU")
+    control_errs = control_pieces()
+
+    phase("side process: planners, fleet scale and quadrotor (its log, its "
+          "own clock)")
     side = finish_side(side_result, side_log)
     plan_launches, sweep_rel, fleet = (side["plan_launches"],
                                        side["sweep_rel"], side["fleet"])
+    quad_launches = side["quad_launches"]
 
     phase("report")
     # (name, replaces, max abs err, device ms, wrapper ms, plain ms,
@@ -2398,11 +2685,24 @@ def main() -> int:
         **{path: fleet[path]["batched_cholesky_solve"] for path in (
             "phase", "warm", "solve_batch_sharded", "seq_riccati_blocks",
             "scaling")}}
-    kernels[2]["max_err_indefinite"] = max(indef_rel, sweep_rel)
+    kernels[2]["launches_by_path"].update(quad_launches)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    quad_holds[4]["err"])
+    for m, h in quad_holds.items():
+        # the quadrotor's shapes: one system per knot, B = N = 60, k = 14
+        for key in ("ms", "wrapper_ms", "graph_ms", "plain_ms", "library_ms",
+                    "library_wrapper_ms"):
+            kernels[2][f"{key}_quad_m{m}"] = h[key]
+        kernels[2][f"bound_ms_quad_m{m}"], kernels[2][
+            f"bound_by_quad_m{m}"] = h["bound"]
+    kernels[2]["max_err_indefinite"] = max(indef_rel, sweep_rel,
+                                           quad_holds[5]["rel_err"])
     kernels[2]["nonfinite_share_indefinite"] = indef_bad
     print(f"profiler traces of timed calls: {json.dumps(TRACES)} (records "
           "lost by the pre-roll, the first launches of a trace; the timed "
           "calls kept every record)", flush=True)
+    print("control pieces, card against CPU, max err over (1 + |ref|): "
+          + json.dumps(control_errs), flush=True)
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

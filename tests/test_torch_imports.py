@@ -87,10 +87,19 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch.control.mhtt import MHTT
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
-    from aircraft_tpu_torch.solvers import ocp, trim
+    from aircraft_tpu_torch.solvers import lqr, ocp, trim
+    from aircraft_tpu_torch.control import inverse_dynamics, mhe, pid
+    from aircraft_tpu_torch.control import quadrotor as quad
+    from aircraft_tpu_torch.dynamics import frames
+    from aircraft_tpu_torch.dynamics.quadrotor import QuadrotorParams
+    from aircraft_tpu_torch.examples import (closed_loop_mhe,
+                                             stability_analysis,
+                                             time_optimal_quad)
 
     cfg = glider_config()
     params = AircraftParams.from_config(cfg.aircraft, device="cpu")
+    x0 = torch.tensor(cfg.waypoints.initial_state, dtype=torch.float32)
+    u0 = torch.zeros(7)
     track = DubinsInitialiser(cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     box = ([-1.0] * 7, [1.0] * 7)
@@ -137,7 +146,31 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: parallel.spawn(print, 1),
                  lambda: batched_mpc.run_fleet(),
                  lambda: batched_mpc.main([]),
-                 lambda: batched_mpc.main(["--mesh"])):
+                 lambda: batched_mpc.main(["--mesh"]),
+                 lambda: frames.EarthRotationParams.at_latitude(45.0),
+                 lambda: QuadrotorParams.default(),
+                 lambda: quad.initial_state_inverted(),
+                 lambda: quad.build_quadrotor_ocp([1.0, 0.0, 0.0], dt=0.1),
+                 lambda: quad.build_quadrotor_ocp_dynamic(dt=0.1),
+                 lambda: quad.build_quadrotor_ocp_variable_time(
+                     [1.0, 0.0, 0.0], dt_bounds=(0.01, 0.1)),
+                 lambda: quad.solve_quadrotor_control([1.0, 0.0, 0.0]),
+                 lambda: quad.solve_quadrotor_time_optimal([1.0, 0.0, 0.0]),
+                 lambda: inverse_dynamics.solve_inverse_dynamics(
+                     params, cfg, [10.0, 0.0, -200.0]),
+                 lambda: lqr.design(params, x0, u0, 0.01),
+                 lambda: trim.discrete_stability_analysis(params, x0, u0),
+                 lambda: mhe.estimate_wind(params, x0.expand(3, 13),
+                                           u0.expand(2, 7), 0.02),
+                 lambda: pid.pid_init(),
+                 lambda: pid.attitude_pid_init(),
+                 lambda: pid.simulate_pid(params, x0, [0.0], [0.0], 0.02),
+                 lambda: time_optimal_quad.run(),
+                 lambda: time_optimal_quad.main([]),
+                 lambda: stability_analysis.run(),
+                 lambda: stability_analysis.main([]),
+                 lambda: closed_loop_mhe.run(),
+                 lambda: closed_loop_mhe.main([])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
