@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 
 from aircraft_tpu_torch.dubins.dubins2d import DubinsPath, shortest_path
+from aircraft_tpu_torch.dubins.vertical import vertical_profile
 
 
 @dataclass
@@ -170,3 +171,84 @@ def straight_line_fallback(qi, qf, n: int = 64) -> np.ndarray:
     cfg[:, 3] = psi
     cfg[:, 4] = gamma
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# length bounds (reference dubins3d.py:154-230: getLowerBound/getUpperBound)
+# ---------------------------------------------------------------------------
+
+
+def lower_bound(
+    qi,
+    qf,
+    rho: float,
+    pitch_limits: tuple[float, float] = (-np.pi / 4, np.pi / 2),
+) -> float:
+    """Lower bound on the 3D maneuver length: relax the lateral plane to the
+    tighter spiral radius rho*cos(max pitch)^2 (a turn flown at full pitch
+    projects onto a smaller horizontal circle) and fly the vertical plane at
+    the full curvature budget rho — each plane individually optimistic, so
+    the composition cannot exceed the true optimum
+    (reference dubins3d.py:154-188).  When the exact vertical profile
+    leaves the pitch envelope, falls back to the pitch-CLAMPED CSC
+    construction (dubins/vertical.py — the reference's `Vertical` plays
+    exactly this role in its getLowerBound): the clamped profile matches
+    Δz at the envelope's steepest legal slope, so its length still
+    under-estimates any feasible 3D maneuver.  Returns 0.0 only when even
+    the clamped profile cannot be built."""
+    qi = np.asarray(qi, dtype=float)
+    qf = np.asarray(qf, dtype=float)
+    spiral_radius = rho * np.cos(max(-pitch_limits[0], pitch_limits[1])) ** 2
+
+    lateral = shortest_path(qi[[0, 1, 3]], qf[[0, 1, 3]], spiral_radius)
+    if lateral is None:
+        return 0.0
+    vi = np.array([0.0, qi[2], qi[4]])
+    vf = np.array([lateral.length, qf[2], qf[4]])
+    vertical = shortest_path(vi, vf, rho)
+    if vertical is not None and _pitch_feasible(vertical, pitch_limits):
+        return float(vertical.length)
+    clamped = vertical_profile(vi, vf, rho, pitch_limits)
+    if clamped is None:
+        return 0.0
+    # both are relaxations (clamped drops the abscissa constraint, exact
+    # drops the pitch constraint) — the tighter valid bound is their max
+    return float(max(clamped.length,
+                     vertical.length if vertical is not None else 0.0))
+
+
+def upper_bound(
+    qi,
+    qf,
+    rho: float,
+    pitch_limits: tuple[float, float] = (-np.pi / 4, np.pi / 2),
+) -> float:
+    """Upper bound on the 3D maneuver length: fly BOTH planes at the
+    conservative safe radius sqrt(2)*rho, which always leaves each plane
+    enough curvature budget (1/(sqrt2 rho)^2 + 1/(sqrt2 rho)^2 = 1/rho^2) —
+    any feasible decoupled construction at that radius is achievable, so its
+    length bounds the optimum from above (reference dubins3d.py:190-230).
+    Returns inf when endpoints are too close for the safe-radius
+    construction or the vertical profile is infeasible."""
+    qi = np.asarray(qi, dtype=float)
+    qf = np.asarray(qf, dtype=float)
+    safe_radius = np.sqrt(2.0) * rho
+
+    if np.hypot(qf[0] - qi[0], qf[1] - qi[1]) < 4.0 * safe_radius:
+        return float("inf")
+
+    lateral = shortest_path(qi[[0, 1, 3]], qf[[0, 1, 3]], safe_radius)
+    if lateral is None:
+        return float("inf")
+    vertical = shortest_path(
+        np.array([0.0, qi[2], qi[4]]),
+        np.array([lateral.length, qf[2], qf[4]]),
+        safe_radius,
+    )
+    if vertical is None:
+        return float("inf")
+    # the bound is only valid if the certified path is actually flyable:
+    # exact pitch check, no sampling gaps
+    if not _pitch_feasible(vertical, pitch_limits):
+        return float("inf")
+    return float(vertical.length)

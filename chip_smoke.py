@@ -151,10 +151,43 @@ must pass or the script exits non-zero without a result line:
               the CPU within 2e-4 (1 + |ref|): one estimate_wind (W=20),
               one LQR design about the default-aero trim with one
               closed_loop_step of 8 states, one
-              discrete_stability_analysis (25 states, 20 time steps).
+              discrete_stability_analysis (25 states, 20 time steps);
+              and, in the main process after those, the learning path:
+              an aero CSV of 131,072 samples (inputs input_mean +
+              input_std·N(0, 1), numpy seed 0, with data/networks/
+              mlp.npz's scalers; labels the shipped MLP in float64 on
+              the host) written under the build directory and read back
+              bit for bit by load_aero_csv; examples/fit_surrogates.py on
+              it (linear and polynomial fits, the 5-16-32-6 MLP at batch
+              512), every RMSE and loss finite and the MLP's validation
+              loss below its first epoch's; one train_mlp step on the card
+              against the CPU from the same weights and batch within 1e-4
+              (1 + |ref|); the trained MLP on the headline window (B=256,
+              N=50): both window kernels held against their plain
+              versions as above, then one fused window solve, each
+              window kernel launched once per inner iteration (36); the
+              batch-norm MLP (5-64-64-6, 3 epochs of 4,096 samples at
+              batch 256; its train-mode outputs, as its pre-norm biases'
+              gradients are rounding noise) and the GP (n=256, 50 Adam
+              iterations; hyperparameters and predictions) card against
+              CPU within 1e-3 (1 + |ref|); the default DDPG agent (obs 13,
+              act 3, hidden (256, 128)): 200 updates at batch 64 and 200
+              at 256 timed, one update card against CPU within 1e-4
+              (1 + |ref|) in every net and loss, examples/train_ddpg.py
+              (in the side process, below) for 60 episodes of at most 150 steps (its curriculum's
+              first 50 episodes, goal distance 0, end after one step, so
+              its replay buffer passes the 1,000 transitions that start
+              training only in the second stage: the advance and at least
+              one update held); torch.profiler traces of one train_mlp
+              epoch (10 steps at batch 512) and of 20 DDPG updates at
+              batch 64: launches and device records per step and the
+              device's busy share, printed; the NLP oracle
+              (solve_reference_nlp) on the quadrotor control problem
+              (N=20, dt 0.1) on the card against the CPU (max |du| <
+              1e-4, relative cost < 1e-9), both walls printed.
               Cuts, never a width or a
-              shape: the phase mode's reps 5 -> 2; the warm mode's 6 warm
-              windows -> 2; the roofline mode's reps 3 -> 2; oppoints'
+              shape: fit_surrogates' 150 epochs -> 20; the phase mode's reps 5 -> 2; the warm
+              mode's 6 warm windows -> 2; the roofline mode's reps 3 -> 2; oppoints'
               six points -> two, warmup 6 -> 0, reps 3 -> 1; the scaling
               mode's 2 x 6 -> 1 x 2 and reps 3 -> 1; batched_mpc's 5
               windows -> 2;
@@ -162,11 +195,11 @@ must pass or the script exits non-zero without a result line:
    plant's best glide, found once per process (mlp_glide): its three trim
    searches took ~8 s at each of a dozen call sites.  Once the kernels'
    device times are taken (after the serving shapes), the planners and
-   the fleet scale (and the quadrotor) run in a second process on the
-   same card
+   the fleet scale (and the quadrotor and train_ddpg) run in a second
+   process on the same card
    (chip_smoke.py --side RESULT, its own counts and clock) beside the
    other paths, to keep the smoke within its limit; its log is printed
-   after the plant breadth, and its failure fails the smoke.  Every
+   after the learning path, and its failure fails the smoke.  Every
    process the smoke starts is stopped before it exits.
 8. report   - one JSON line of the kernels, the card's name and power
               limit, and the last line {"ok": true, "device": {...}}.
@@ -1964,6 +1997,332 @@ def control_pieces():
     return errs
 
 
+# the learning phase: the aero dataset, its cuts and tolerances
+LEARN_SAMPLES = 131072     # the aero dataset the smoke writes
+LEARN_WINDOW_B = 256       # the trained MLP's window: the headline fleet
+LEARN_EPOCHS = 20          # fit_surrogates' 150 epochs, cut
+LEARN_TOL = 1e-4           # one step card against CPU, of 1 + |ref|
+LEARN_RUN_TOL = 1e-3       # a few epochs or iterations, of 1 + |ref|
+BN_SAMPLES, BN_HIDDEN, BN_EPOCHS, BN_BATCH = 4096, (64, 64), 3, 256
+GP_N, GP_ITERS = 256, 50
+DDPG_UPDATES, DDPG_BATCHES, DDPG_FILL = 200, (64, 256), 10000
+TRAIN_DDPG = (60, 150)     # 10 episodes past the curriculum's first stage
+MLP_TRACE_SAMPLES = 5689   # train_mlp's split: 5,121 to train, 10 batches
+DDPG_TRACE = 20            # traced DDPG updates at batch 64
+NLP_QUAD = dict(N=20, dt=0.1, target=(2.0, 1.0, -4.0), maxiter=250)
+
+
+def learn_held(label, out, ref, tol):
+    """max |out - ref| / (1 + |ref|) printed and held within tol."""
+    import numpy as np
+
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    check(out.shape == ref.shape, f"{label}: shapes {out.shape}, {ref.shape}")
+    err = float(np.max(np.abs(out - ref) / (1.0 + np.abs(ref))))
+    print(f"learning on the card: {label}: max err over (1 + |ref|) "
+          f"{err:.3e} (tol {tol})", flush=True)
+    check(err <= tol, f"{label}: card and CPU differ by {err}")
+    return err
+
+
+def learning_trace(label, fn, steps):
+    """fn (which takes ``steps`` train steps) in a torch.profiler trace,
+    after one untraced call: its kernel launches and device records per
+    step, the wall per step under the trace (which adds its own cost to
+    each launch) and the device's busy share over that wall (None where
+    the profiler saw no device time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum("LaunchKernel" in e.name for e in events
+                   if e.device_type != torch.autograd.DeviceType.CUDA)
+    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+    out = {"launches_per_step": launches / steps,
+           "device_records_per_step": len(on_device) / steps,
+           "traced_ms_per_step": wall * 1e3 / steps,
+           "device_busy": device_us * 1e-6 / wall if device_us > 0 else None}
+    print(f"{label}: traced {json.dumps(out)}", flush=True)
+    return out
+
+
+def learning_dataset(path):
+    """LEARN_SAMPLES aero samples written as an aero CSV at ``path``:
+    inputs input_mean + input_std·N(0, 1) (numpy seed 0) with the
+    scalers of data/networks/mlp.npz, the spread of the data it was
+    trained on; labels the shipped MLP evaluated in float64 on the host.
+    Returns (x, y) as float32."""
+    import numpy as np
+
+    from aircraft_tpu_torch.config import NETWORKPATH
+    from aircraft_tpu_torch.surrogates.preprocess import (INPUT_COLS,
+                                                          OUTPUT_COLS)
+
+    with np.load(NETWORKPATH / "mlp.npz") as d:
+        w = {k: d[k].astype(np.float64) for k in d.files}
+    rng = np.random.default_rng(0)
+    x = (w["input_mean"] + w["input_std"] * rng.standard_normal(
+        (LEARN_SAMPLES, 5))).astype(np.float32)
+    h = (x.astype(np.float64) - w["input_mean"]) / w["input_std"]
+    h = np.tanh((h @ w["w0"] + w["b0"]) @ w["w1"] + w["b1"])
+    y = ((h @ w["w2"] + w["b2"]) * w["output_std"]
+         + w["output_mean"]).astype(np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savetxt(path, np.concatenate([x, y], axis=1), fmt="%.9g",
+               delimiter=",", header=",".join(INPUT_COLS + OUTPUT_COLS),
+               comments="")
+    return x, y
+
+
+def learning_trained_window(mlp_path, device="cuda"):
+    """The trained MLP in the serving path: the headline window problem
+    (B=256, N=50, the course track at the shipped plant's glide) on the
+    trained plant, both window kernels held against their plain versions
+    at its expansion point (hold_kernels), then one fused window solve
+    with every count reset just before it: each window kernel launched
+    once per inner iteration.  Returns (hold, counts)."""
+    import torch
+
+    from aircraft_tpu_torch import bench
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+    from aircraft_tpu_torch.kernels import window as win
+    from aircraft_tpu_torch.solvers import ocp as ocp_mod
+    from aircraft_tpu_torch.solvers.fused import make_fused_solver
+
+    coeff = load_mlp(mlp_path, device=device)
+    _, params, ocp, track, v_ref, spec = bench.build_problem(
+        device, coeff=coeff, glide=mlp_glide(device))
+    config = bench.headline_config()
+    N = bench.N_HORIZON
+    B = LEARN_WINDOW_B
+    z0s, trim = bench.fleet_states(params, track, B, v_ref)
+    w0 = ocp.control_unsquash(trim.control[:7])
+    us = w0.reshape(1, 1, 7).expand(B, N, 7).contiguous()
+    op = win.make_window_operands(spec, N, alphas=win.line_search_alphas(
+        config.line_search_steps), device=device)
+    hold = hold_kernels(op, window_inputs(ocp, spec, z0s, us, config, N),
+                        f"trained MLP B={B} N={N}")
+    solve = make_fused_solver(ocp, spec, N, config)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    sols = solve(z0s, us)
+    sols.cost.cpu()
+    wall = time.perf_counter() - t0
+    counts = check_window_launches(
+        "trained MLP window", 1, config.max_al_iters * config.max_inner_iters)
+    summary = bench.window_summary(sols.violation.cpu().numpy(),
+                                   sols.cost.cpu().numpy())
+    print(f"trained MLP window: {wall:.2f} s, " + json.dumps(summary),
+          flush=True)
+    check(bool(torch.isfinite(sols.cost).all()),
+          "trained MLP window: a non-finite cost")
+    return hold, counts
+
+
+def learning_path(device="cuda"):
+    """The learning tools on the card: surrogate fitting and training
+    (examples/fit_surrogates.py on the smoke's aero CSV), the trained MLP
+    flying a window on the window kernels, the batch-norm MLP and the GP,
+    the DDPG agent's timed, traced and held updates, and the NLP oracle on the quadrotor; every piece held on the card against the
+    same code on the CPU.  Returns (record, trained-window launches).
+    ``device="cpu"`` rehearses the control flow (each hold then compares
+    the CPU with itself)."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch.control.quadrotor import build_quadrotor_ocp
+    from aircraft_tpu_torch.dynamics.coefficients import MLP_KEYS, MLPCoeffParams
+    from aircraft_tpu_torch.examples import fit_surrogates
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+    from aircraft_tpu_torch.rl import ddpg
+    from aircraft_tpu_torch.solvers.reference_nlp import solve_reference_nlp
+    from aircraft_tpu_torch.surrogates import extras, load_aero_csv, train_mlp
+
+    out = BUILD_DIR / "chip_smoke_learning"
+    rec = {}
+    t0 = time.perf_counter()
+    x, y = learning_dataset(out / "aero.csv")
+    xr, yr = load_aero_csv(out / "aero.csv")
+    check(np.array_equal(xr, x) and np.array_equal(yr, y),
+          "load_aero_csv did not read back the CSV written")
+    print(f"learning: dataset of {x.shape[0]} samples written and read back "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    fit = fit_surrogates.run(out / "aero.csv", out / "networks",
+                             epochs=LEARN_EPOCHS, device=device,
+                             log=lambda line: print(line, flush=True))
+    numbers = (fit["linear_rmse"] + fit["poly_rmse"] + fit["mlp_val_history"]
+               + [fit["mlp_train_loss"], fit["mlp_val_loss"]])
+    check(all(math.isfinite(v) for v in numbers),
+          "fit_surrogates: a non-finite RMSE or loss")
+    check(fit["mlp_val_loss"] < fit["mlp_val_history"][0],
+          f"fit_surrogates: validation loss {fit['mlp_val_loss']} not below "
+          f"its first epoch's {fit['mlp_val_history'][0]}")
+    rec["fit"] = {k: fit[k] for k in (
+        "linear_rmse", "poly_rmse", "mlp_train_loss", "mlp_val_loss",
+        "mlp_epochs", "mlp_steps", "mlp_steps_per_s", "mlp_wall_s")}
+    rec["fit"]["mlp_first_val_loss"] = fit["mlp_val_history"][0]
+
+    # one train_mlp step: 569 samples, 513 to train, one batch of 512
+    init = MLPCoeffParams.init(torch.Generator().manual_seed(1), device="cpu")
+    step = {dev: train_mlp(x[:569], y[:569], init=init, epochs=1, seed=1,
+                           device=dev) for dev in (device, "cpu")}
+    rec["train_step_err"] = max(
+        learn_held(f"one train_mlp step {k}",
+                   getattr(step[device].params, k).cpu(),
+                   getattr(step["cpu"].params, k), LEARN_TOL)
+        for k in MLP_KEYS)
+    learn_held("one train_mlp step loss", step[device].train_loss,
+               step["cpu"].train_loss, LEARN_TOL)
+    rec["mlp_trace"] = learning_trace(
+        "train_mlp, one epoch of 10 steps at batch 512 with its validation",
+        lambda: train_mlp(x[:MLP_TRACE_SAMPLES], y[:MLP_TRACE_SAMPLES],
+                          init=init, epochs=1, seed=1, device=device), 10)
+
+    hold, counts = learning_trained_window(out / "networks" / "mlp.npz",
+                                           device)
+    rec["trained_window_hold"] = {k: hold[k] for k in ("backward_err",
+                                                       "forward_err")}
+
+    # the batch-norm MLP: the standardised inputs, a few epochs
+    xs = (x[:BN_SAMPLES] - x.mean(0)) / x.std(0)
+    ys = (y[:BN_SAMPLES] - y.mean(0)) / y.std(0)
+    bn_init = extras.BatchNormMLP.init(torch.Generator().manual_seed(0),
+                                       [5, *BN_HIDDEN, 6], device="cpu")
+    t1 = time.perf_counter()
+    bn = {dev: extras.train_batchnorm_mlp(
+        xs, ys, hidden=BN_HIDDEN, epochs=BN_EPOCHS, batch_size=BN_BATCH,
+        init=bn_init, device=dev) for dev in (device, "cpu")}
+    # the hidden biases feed a batch norm, whose batch mean removes them:
+    # their gradients are rounding noise that Adam scales to full steps,
+    # so the trained nets are held through their train-mode outputs
+    xb = torch.as_tensor(xs[:BN_BATCH])
+    bn_out = {dev: extras.batchnorm_mlp_apply(bn[dev][0], xb.to(dev),
+                                              train=True)[0].cpu()
+              for dev in bn}
+    rec["batchnorm_err"] = learn_held(
+        f"batch-norm MLP {BN_HIDDEN}, {BN_EPOCHS} epochs: train-mode outputs",
+        bn_out[device], bn_out["cpu"], LEARN_RUN_TOL)
+    learn_held("batch-norm MLP last loss", bn[device][1], bn["cpu"][1],
+               LEARN_RUN_TOL)
+    print(f"batch-norm MLP: both devices {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    # the GP on the first GP_N standardised samples, one output (CZ)
+    t1 = time.perf_counter()
+    gp = {dev: extras.GPSurrogate.fit(xs[:GP_N], ys[:GP_N, 2], iters=GP_ITERS,
+                                      device=dev) for dev in (device, "cpu")}
+    pred = {dev: [t.cpu() for t in gp[dev].predict(xs[GP_N:GP_N + 64])]
+            for dev in gp}
+    rec["gp_err"] = max(
+        learn_held(f"GP n={GP_N}, {GP_ITERS} iterations: hyperparameters",
+                   torch.cat([t.reshape(-1).cpu()
+                              for t in gp[device].params]),
+                   torch.cat([t.reshape(-1) for t in gp["cpu"].params]),
+                   LEARN_RUN_TOL),
+        learn_held("GP predictive mean", pred[device][0], pred["cpu"][0],
+                   LEARN_RUN_TOL),
+        learn_held("GP predictive std", pred[device][1], pred["cpu"][1],
+                   LEARN_RUN_TOL))
+    print(f"GP: both devices {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # DDPG: the default agent (obs 13, act 3, hidden (256, 128))
+    rng = np.random.default_rng(0)
+    buf = ddpg.ReplayBuffer(DDPG_FILL, 13, 3, device=device)
+    for _ in range(DDPG_FILL):
+        buf.add(rng.normal(0, 1, 13), rng.uniform(-5, 5, 3), rng.normal(),
+                rng.normal(0, 1, 13), rng.random() < 0.05)
+    agent = ddpg.DDPGAgent(13, 3, seed=0, device=device)
+    rec["ddpg_updates_per_s"] = {}
+    for batch in DDPG_BATCHES:
+        agent.train_step(buf.sample(rng, batch))
+        t1 = time.perf_counter()
+        for _ in range(DDPG_UPDATES):
+            losses = agent.train_step(buf.sample(rng, batch))
+        rate = DDPG_UPDATES / (time.perf_counter() - t1)
+        check(all(math.isfinite(v) for v in losses),
+              f"DDPG at batch {batch}: non-finite losses {losses}")
+        rec["ddpg_updates_per_s"][batch] = rate
+        print(f"DDPG: {DDPG_UPDATES} updates at batch {batch}: {rate:.1f} "
+              f"updates/s (losses {losses})", flush=True)
+    rec["ddpg_trace"] = learning_trace(
+        f"DDPG, {DDPG_TRACE} updates at batch 64, each with its sample",
+        lambda: [agent.train_step(buf.sample(rng, 64))
+                 for _ in range(DDPG_TRACE)], DDPG_TRACE)
+    cpu_agent = ddpg.DDPGAgent(13, 3, seed=1, device="cpu")
+    card_agent = ddpg.DDPGAgent(13, 3, params=cpu_agent.params,
+                                device=device)
+    b = buf.sample(rng, 64)
+    l_cpu = cpu_agent.train_step(ddpg.Transition(*(t.cpu() for t in b)))
+    l_card = card_agent.train_step(b)
+    nets = ("actor", "critic", "target_actor", "target_critic")
+    rec["ddpg_update_err"] = max([learn_held(
+        f"one DDPG update: {net}",
+        torch.cat([t.detach().reshape(-1).cpu() for t in getattr(
+            card_agent.params, net).tensors()]),
+        torch.cat([t.detach().reshape(-1) for t in getattr(
+            cpu_agent.params, net).tensors()]), LEARN_TOL) for net in nets]
+        + [learn_held("one DDPG update: losses", l_card, l_cpu, LEARN_TOL)])
+
+    # the NLP oracle on the quadrotor control problem
+    q = NLP_QUAD
+    x0 = np.zeros(13, np.float32)
+    x0[6] = 1.0
+    us0 = np.full((q["N"], 4), 9.81 / 4.0, np.float32)
+    nlp, walls = {}, {}
+    for dev in (device, "cpu"):
+        t1 = time.perf_counter()
+        nlp[dev] = solve_reference_nlp(
+            build_quadrotor_ocp(q["target"], dt=q["dt"], device=dev), x0, us0,
+            maxiter=q["maxiter"], device=dev)
+        walls[dev] = time.perf_counter() - t1
+        check(nlp[dev].success, f"NLP oracle on {dev}: {nlp[dev].message}")
+    max_du = float(np.abs(nlp[device].us - nlp["cpu"].us).max())
+    rel_cost = abs(nlp[device].cost - nlp["cpu"].cost) / abs(nlp["cpu"].cost)
+    print(f"NLP oracle, quadrotor N={q['N']} dt={q['dt']}: card "
+          f"{walls[device]:.1f} s ({nlp[device].nit} iterations, violation "
+          f"{nlp[device].violation:.2e}), CPU {walls['cpu']:.1f} s "
+          f"({nlp['cpu'].nit}); max |du| {max_du:.3e} (tol 1e-4), relative "
+          f"cost {rel_cost:.3e} (tol 1e-9)", flush=True)
+    check(max_du < 1e-4 and rel_cost < 1e-9,
+          "NLP oracle: card and CPU solutions differ")
+    rec["nlp"] = {"wall_s_card": walls[device], "wall_s_cpu": walls["cpu"],
+                  "nit": nlp[device].nit, "max_du": max_du,
+                  "rel_cost": rel_cost}
+    print("learning record: " + json.dumps(rec), flush=True)
+    return rec, counts
+
+
+def learning_train_ddpg(device="cuda"):
+    """examples/train_ddpg.py on the card for TRAIN_DDPG episodes: finite
+    returns, the curriculum past its first stage, at least one update.
+    Run in the side process: its B=1 plant steps are host-bound."""
+    from aircraft_tpu_torch.examples import train_ddpg
+    from aircraft_tpu_torch.rl import ddpg
+
+    ep = train_ddpg.run(*TRAIN_DDPG, device=device, log=lambda line: None)
+    print(f"train_ddpg: {ep['episodes']} episodes, {ep['env_steps']} env "
+          f"steps, {ep['updates']} updates, stage {ep['stage']}, "
+          f"{ep['wall_s']} s", flush=True)
+    check(all(math.isfinite(v) for v in ep["returns"]),
+          f"train_ddpg: non-finite returns {ep['returns']}")
+    check(ep["updates"] > 0 and ep["stage"] != ddpg.DEFAULT_CURRICULUM[0].name,
+          f"train_ddpg: {ep['updates']} updates, stage {ep['stage']}")
+    return {k: ep[k] for k in ("episodes", "env_steps", "updates", "stage",
+                               "wall_s")}
+
+
 # the plant-breadth phase: (model, quaternion, substeps, integration) rows
 # of the ablation grid at its full width (glider, N=40, dt=0.05, goal
 # +[120, 20, 10] m, trim warm start), cut to 1 x 2 iterations
@@ -2315,8 +2674,9 @@ SIDE = []     # the side process, while it runs
 
 
 def side_paths(result_path) -> int:
-    """``chip_smoke.py --side RESULT``: the planners and the fleet scale,
-    each path with every count reset just before it, in a process of its
+    """``chip_smoke.py --side RESULT``: the planners, the fleet scale,
+    the quadrotor's time-optimal solve and examples/train_ddpg.py, each
+    path with every count reset just before it, in a process of its
     own that runs beside the main process's later paths once the kernels'
     device times are taken.  Writes what the report needs to RESULT."""
     from pathlib import Path
@@ -2342,9 +2702,13 @@ def side_paths(result_path) -> int:
 
     phase("path: quadrotor time-optimal on the Cholesky kernel")
     quad_launches, _ = quadrotor_path()
+
+    phase("path: learning, examples/train_ddpg.py")
+    train = learning_train_ddpg()
     Path(result_path).write_text(json.dumps({
         "plan_launches": plan_launches, "sweep_rel": sweep_rel,
-        "fleet": fleet, "quad_launches": quad_launches}))
+        "fleet": fleet, "quad_launches": quad_launches,
+        "train_ddpg": train}))
     return 0
 
 
@@ -2372,7 +2736,8 @@ def finish_side(result, log) -> dict:
     rc = SIDE[0].wait()
     SIDE.clear()
     print(log.read_text(), end="", flush=True)
-    check(rc == 0, f"the side process (planners, fleet scale) exited {rc}")
+    check(rc == 0, f"the side process (planners, fleet scale, quadrotor, "
+          f"train_ddpg) exited {rc}")
     return json.loads(result.read_text())
 
 
@@ -2625,9 +2990,15 @@ def main() -> int:
     phase("path: estimator, LQR and stability analysis, card against CPU")
     control_errs = control_pieces()
 
-    phase("side process: planners, fleet scale and quadrotor (its log, its "
-          "own clock)")
+    phase("path: learning")
+    t0 = time.perf_counter()
+    learning, learn_launches = learning_path()
+    print(f"learning: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("side process: planners, fleet scale, quadrotor and train_ddpg "
+          "(its log, its own clock)")
     side = finish_side(side_result, side_log)
+    print("train_ddpg record: " + json.dumps(side["train_ddpg"]), flush=True)
     plan_launches, sweep_rel, fleet = (side["plan_launches"],
                                        side["sweep_rel"], side["fleet"])
     quad_launches = side["quad_launches"]
@@ -2668,6 +3039,8 @@ def main() -> int:
               ("course_b6", "course B=6 N=30 ss=5 default"),
               ("whole_b1", "whole warm start B=1 N=50 default"))
     for row, half in ((kernels[0], "backward"), (kernels[1], "forward")):
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 learning["trained_window_hold"][f"{half}_err"])
         for key, label in shapes:
             hold = serving[label]
             row[f"ms_{key}"] = hold[f"{half}_ms"]
@@ -2677,6 +3050,7 @@ def main() -> int:
             path: counts[row["name"]] for path, counts in serve_launches.items()},
             "whole_warm_start": plan_launches["whole_warm_start"][row["name"]],
             "plant_breadth_poly_window": plant_launches[row["name"]],
+            "learning_trained_mlp_window": learn_launches[row["name"]],
             **{path: fleet[path][row["name"]] for path in (
                 "roofline", "oppoints", "batched_mpc")}}
     kernels[2]["launches_by_path"] = {

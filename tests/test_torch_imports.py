@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,6 +96,10 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     from aircraft_tpu_torch.examples import (closed_loop_mhe,
                                              stability_analysis,
                                              time_optimal_quad)
+    from aircraft_tpu_torch.examples import fit_surrogates, train_ddpg
+    from aircraft_tpu_torch.rl import ddpg
+    from aircraft_tpu_torch.solvers.reference_nlp import solve_reference_nlp
+    from aircraft_tpu_torch.surrogates import extras, models
 
     cfg = glider_config()
     params = AircraftParams.from_config(cfg.aircraft, device="cpu")
@@ -103,6 +108,8 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     track = DubinsInitialiser(cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     box = ([-1.0] * 7, [1.0] * 7)
+    xa, ya = np.ones((8, 5), np.float32), np.ones((8, 6), np.float32)
+    layers = [(np.ones((2, 3)), np.zeros(3))]
     for call in (lambda: device.resolve_device(),
                  lambda: load_mlp(),
                  lambda: bench.build_problem(),
@@ -170,7 +177,25 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: stability_analysis.run(),
                  lambda: stability_analysis.main([]),
                  lambda: closed_loop_mhe.run(),
-                 lambda: closed_loop_mhe.main([])):
+                 lambda: closed_loop_mhe.main([]),
+                 lambda: solve_reference_nlp(None, [0.0], [[0.0]]),
+                 lambda: models.fit_linear(xa, ya),
+                 lambda: models.fit_polynomial(xa, ya),
+                 lambda: models.train_mlp(xa, ya),
+                 lambda: extras.BatchNormMLP.init(torch.Generator(), (2, 3)),
+                 lambda: extras.batchnorm_mlp_from_numpy({}),
+                 lambda: extras.train_batchnorm_mlp(xa, ya),
+                 lambda: extras.gp_params_from_numpy({}),
+                 lambda: extras.GPSurrogate.fit(xa, ya[:, 0]),
+                 lambda: ddpg.MLPParams.init(torch.Generator(), (2, 3)),
+                 lambda: ddpg.mlp_params_from_numpy(layers),
+                 lambda: ddpg.ddpg_params_from_numpy(layers, layers),
+                 lambda: ddpg.ReplayBuffer(4, 13, 3),
+                 lambda: ddpg.DDPGAgent(13, 3),
+                 lambda: fit_surrogates.run("aero.csv"),
+                 lambda: fit_surrogates.main(["--data", "aero.csv"]),
+                 lambda: train_ddpg.run(1, 1),
+                 lambda: train_ddpg.main([])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
