@@ -2,8 +2,12 @@
 
 A copy of the parts of the reference configuration that the window-solve
 path reads: the plant geometry, the declared state and control envelopes,
-the waypoint set, and the solver settings.  ``glider_config()`` loads the
-canonical glider problem from ``data/glider/problem_definition.json``.
+the waypoint set, the transcription option axes and the solver settings.
+``glider_config()`` loads the canonical glider problem from
+``data/glider/problem_definition.json``; ``GLIDER_PROBLEM`` is that file's
+declared dict, which ``write_glider_problem_json`` writes out again.
+Everything the port writes goes under ``BUILDPATH`` (or a path its caller
+gives), never under ``data/``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ BASEPATH = Path(__file__).resolve().parent.parent
 DATAPATH = BASEPATH / "data"
 NETWORKPATH = DATAPATH / "networks"
 GLIDER_PROBLEM_PATH = DATAPATH / "glider" / "problem_definition.json"
+BUILDPATH = BASEPATH / "build" / "aircraft_tpu_torch"
+VISUPATH = BUILDPATH / "visualisation"
 
 RHO = 1.225  # air density used throughout the aero pipeline [kg/m^3]
 
@@ -188,6 +194,72 @@ class TrajectoryConfig:
         with open(path) as f:
             return cls.from_dict(json.load(f))
 
+    def to_dict(self) -> dict:
+        """The reference JSON schema (the keys ``from_dict`` reads), so
+        ``TrajectoryConfig.from_dict(cfg.to_dict()) == cfg`` for 3D
+        waypoint sets; a 2D set is not invertible, since ``from_dict``
+        back-fills its altitudes along the glide ratio."""
+        a, w, c = self.aircraft, self.waypoints, self.control
+        return {
+            "waypoints": {
+                "waypoints": [list(p) for p in w.waypoints],
+                "initial_state": list(w.initial_state),
+                "default_velocity": w.default_velocity,
+                "waypoint_indices": list(w.waypoint_indices),
+                "waypoint_tolerance": w.tolerance,
+            },
+            "aircraft": {
+                "mass": a.mass, "span": a.span, "length": a.length,
+                "chord": a.chord, "reference_area": a.reference_area,
+                "aero_centre_offset": list(a.aero_centre_offset),
+                "Ixx": a.Ixx, "Iyy": a.Iyy, "Izz": a.Izz, "Ixz": a.Ixz,
+                "r_min": a.r_min, "glide_ratio": a.glide_ratio,
+                "rudder_moment_arm": a.rudder_moment_arm,
+            },
+            "state": {
+                "alpha": list(self.state.alpha),
+                "beta": list(self.state.beta),
+                "airspeed": list(self.state.airspeed),
+            },
+            "control": {
+                "aileron_limit": list(c.aileron),
+                "elevator_limit": list(c.elevator),
+                "rudder_limit": list(c.rudder),
+                "throttle_limit": [list(t) for t in c.throttle],
+                "flaps_limit": list(c.flaps),
+                "centre_of_mass_limit": [list(m) for m in c.centre_of_mass],
+            },
+        }
+
+    def save_json(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+
+TIME_MODES = ("fixed", "progress", "variable", "adaptive")
+QUATERNION_MODES = ("", "constraint", "baumgarte", "integration")
+INTEGRATION_MODES = ("explicit", "implicit")
+
+
+@dataclass(frozen=True)
+class TranscriptionConfig:
+    """Option axes of the OCP transcription: horizon, timestep, time mode,
+    quaternion handling and integration; a mode outside its tuple is
+    refused."""
+
+    num_nodes: int = 50
+    dt: float = 0.01
+    time: str = "fixed"              # fixed | progress | variable | adaptive
+    quaternion: str = "integration"  # '' | constraint | baumgarte | integration
+    integration: str = "explicit"    # explicit | implicit
+    substeps: int = 1
+    dt_bounds: tuple[float, float] = (1e-4, 1e-2)
+
+    def __post_init__(self):
+        assert self.time in TIME_MODES, self.time
+        assert self.quaternion in QUATERNION_MODES, self.quaternion
+        assert self.integration in INTEGRATION_MODES, self.integration
+
 
 @dataclass(frozen=True)
 class SolverConfig:
@@ -216,6 +288,70 @@ class SolverConfig:
     hessian: str = "exact"
 
 
+# state / control scaling of the reference solve
+DEFAULT_STATE_SCALE = np.array(
+    [1e2, 1e2, 1e2, 50, 50, 50, 1, 1, 1, 1, np.pi, np.pi, np.pi])
+DEFAULT_CONTROL_SCALE = np.array([10.0, 10.0, 1.0, 1.0, 1.0, 1.0, 1.0])
+
+
+# The canonical glider problem as declared: the dict behind
+# data/glider/problem_definition.json (2D waypoint objective; its
+# altitudes are back-filled along the glide ratio on load)
+GLIDER_PROBLEM: dict = {
+    "waypoints": {
+        "waypoints": [
+            [150.0, 10.0, -190.0],
+            [0.0, 20.0, -180.0],
+            [150.0, 10.0, -190.0],
+            [0.0, 0.0, -180.0],
+        ],
+        "initial_state": [0, 0, -200, 50, 0, 0, 0, 0, 0, 1, 0, 0, 0],
+        "default_velocity": 30,
+        "waypoint_indices": [0, 1],
+        "waypoint_tolerance": 1e1,
+    },
+    "aircraft": {
+        "mass": 4.0,
+        "span": 2.0,
+        "length": 1.2,
+        "chord": 0.124605,
+        "reference_area": 0.238,
+        "aero_centre_offset": [0.133, 0, 0.003],
+        "Ixx": 0.155,
+        "Iyy": 0.114,
+        "Izz": 0.262,
+        "Ixz": 0.01,
+        "glide_ratio": 3.0,
+        "r_min": 1.0,
+    },
+    "state": {
+        "alpha": [-15, 15],
+        "beta": [-15, 15],
+        "airspeed": [30, 100],
+    },
+    "control": {
+        "aileron_limit": [-10, 10],
+        "elevator_limit": [-10, 10],
+        "rudder_limit": [-10, 10],
+        "throttle_limit": [[0, 0, 0], [0, 0, 0]],
+        "centre_of_mass_limit": [[-0.5, -0.1, -0.1], [0.5, 0.1, 0.1]],
+    },
+}
+
+
 def glider_config() -> TrajectoryConfig:
     """The canonical glider problem (``data/glider/problem_definition.json``)."""
     return TrajectoryConfig.from_json(GLIDER_PROBLEM_PATH)
+
+
+def write_glider_problem_json(
+        path=BUILDPATH / "glider" / "problem_definition.json") -> Path:
+    """Write the canonical problem as a standalone JSON: the raw declared
+    ``GLIDER_PROBLEM``, not a loaded config's ``to_dict()`` (the glide-ratio
+    altitude back-fill applies on load and must not be baked into the
+    file).  The default path is under the build directory; returns it."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with open(p, "w") as f:
+        json.dump(GLIDER_PROBLEM, f, indent=2)
+    return p

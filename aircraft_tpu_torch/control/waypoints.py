@@ -25,7 +25,11 @@ The planners take ``device`` (``cuda`` unless the caller asks for the
 CPU) and ``cuda_chol``: the batched solves (the candidate sweep, the
 free-time ladder) then take the batched-Cholesky kernel in their Riccati
 sweeps, as the reference's vmapped solves reach its Pallas kernel under
-``enable_pallas_chol``; the single solves keep the reference route.
+``enable_pallas_chol``, and so does the fixed-time racing solve of
+``solve_waypoint_racing(cuda_chol=True)`` (one system per knot, as
+``examples/waypoint_racing.py --cuda-chol`` runs it).  The other single
+solves (the warm starts, the time-optimal sweep's nominal) keep the
+reference route.
 """
 
 from __future__ import annotations
@@ -387,7 +391,7 @@ def solve_waypoint_racing(params: AircraftParams, config: TrajectoryConfig,
             vs_np, xs_track.cpu().numpy(), config.waypoints.array()),
             device=dev)
     cfg = solver_config or SolverConfig(max_al_iters=8, max_inner_iters=25)
-    return ilqr.solve(ocp, z0, vs, cfg)
+    return ilqr.solve(ocp, z0, vs, cfg, cuda_chol=cuda_chol)
 
 
 def _uniform_candidate_sweep(params: AircraftParams, config: TrajectoryConfig,

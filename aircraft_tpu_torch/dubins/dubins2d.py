@@ -56,6 +56,11 @@ class DubinsPath:
                 break
         return out
 
+    def sample_many(self, n: int) -> np.ndarray:
+        """(n, 3) configurations uniformly spaced in arc length."""
+        return np.stack([self.sample(s)
+                         for s in np.linspace(0.0, self.length, n)])
+
 
 def _propagate(q: np.ndarray, t: float, seg_type: str, rho: float) -> np.ndarray:
     """Advance a configuration by normalised length t along one segment."""

@@ -66,7 +66,7 @@ class AircraftParams:
             c=config.chord, com=config.aero_centre_offset,
             static_inertia=config.static_inertia,
             rudder_moment_arm=config.rudder_moment_arm,
-            gravity=[0.0, 0.0, 9.81]), coeff=coeff, device=device,
+            gravity=base.GRAVITY.numpy()), coeff=coeff, device=device,
             **switches)
 
     @classmethod

@@ -23,6 +23,9 @@ VEL = slice(3, 6)
 QUAT = slice(6, 10)
 OMEGA = slice(10, 13)
 
+# NED gravity [m/s²], a host constant: a plant moves it to its device
+GRAVITY = torch.tensor([0.0, 0.0, 9.81])
+
 
 def position(x: torch.Tensor) -> torch.Tensor:
     return x[..., POS]

@@ -1,18 +1,28 @@
-"""Post-mortem of solves, strictly off the solve's hot path: the summary
-metrics of a solution (``solver_metrics``), the constraint-description
-registry, ``diagnose`` and ``format_diagnosis`` (what
-``MHTT.diagnose_window`` reports).  The reference module's timers,
-logger and Jacobian checks are not ported yet."""
+"""Observability, strictly off the solve's hot path: the summary metrics
+of a solution (``solver_metrics``), the constraint-description registry,
+``diagnose`` and ``format_diagnosis`` (what ``MHTT.diagnose_window``
+reports), a timestamped file logger, the first-call against warm-call
+timer, a ``torch.profiler`` trace context, and the Jacobian checks: the
+non-finite entries of a step's Jacobians and forward-mode AD
+(``jacfwd``) against central differences."""
 
 from __future__ import annotations
 
+import json
+import logging
+import os
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Optional
+from datetime import datetime
+from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from aircraft_tpu_torch.config import RHO
+from aircraft_tpu_torch.device import resolve_device
 
 
 def solver_metrics(sol, wall_time: Optional[float] = None) -> dict:
@@ -68,6 +78,198 @@ class ConstraintRegistry:
         g = np.asarray(g)
         return [f"{self.describe(int(i))}: {g[i]:.3e}"
                 for i in np.where(g > tol)[0]]
+
+
+def make_logger(name: str = "aircraft_tpu_torch",
+                log_dir: Optional[str] = None) -> logging.Logger:
+    """The logger ``name``, set up once: INFO to a timestamped file
+    ``<log_dir>/<name>_<YYYYmmdd_HHMMSS>.log``, or to nowhere without
+    ``log_dir``."""
+    logger = logging.getLogger(name)
+    if logger.handlers:
+        return logger
+    logger.setLevel(logging.INFO)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        ts = datetime.now().strftime("%Y%m%d_%H%M%S")
+        fh = logging.FileHandler(Path(log_dir) / f"{name}_{ts}.log")
+        fh.setFormatter(logging.Formatter(
+            "%(asctime)s - %(levelname)s - %(message)s"))
+        logger.addHandler(fh)
+    else:
+        logger.addHandler(logging.NullHandler())
+    return logger
+
+
+@dataclass
+class TimedRun:
+    compile_s: float
+    execute_s: float
+    result: object
+
+
+def _cards_of(tree) -> set:
+    """The CUDA devices of the tensors in a tree of tuples, lists, dicts
+    and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        return {tree.device} if tree.is_cuda else set()
+    if isinstance(tree, (tuple, list)):
+        return set().union(*map(_cards_of, tree)) if tree else set()
+    if isinstance(tree, dict):
+        return _cards_of(list(tree.values()))
+    if hasattr(tree, "__dataclass_fields__"):
+        return _cards_of([getattr(tree, f) for f in tree.__dataclass_fields__])
+    return set()
+
+
+def timed_jit_call(fn: Callable, *args, reps: int = 1) -> TimedRun:
+    """The first call against the median of ``reps`` warm calls, each
+    call ended by ``torch.cuda.synchronize`` of every card its result
+    lives on.  ``compile_s`` is the first call's excess over the warm
+    median: in the port there is no trace to compile, so it is what a
+    first call does once, the kernels' first load (the libraries built by
+    ``kernels/_build.py``), the CUDA context and caching allocator's first
+    use, ``torch.func``'s set-up and a CUDA graph's first capture."""
+    def call():
+        t0 = time.perf_counter()
+        out = fn(*args)
+        for dev in _cards_of(out):
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    out, first = call()
+    walls = []
+    for _ in range(reps):
+        out, wall = call()
+        walls.append(wall)
+    med = float(np.median(walls))
+    return TimedRun(compile_s=first - med, execute_s=med, result=out)
+
+
+class TraceFile:
+    """What ``profile_trace`` yields: the live ``profiler`` and, once the
+    region has ended, the ``path`` of its Chrome trace."""
+
+    def __init__(self, profiler):
+        self.profiler = profiler
+        self.path: Optional[Path] = None
+
+    def kernel_records(self) -> int:
+        """The trace's device-kernel records (events of category
+        ``kernel``)."""
+        events = json.loads(Path(self.path).read_text())["traceEvents"]
+        return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+@contextmanager
+def profile_trace(log_dir):
+    """A ``torch.profiler`` trace of the region (the CPU, and the cards
+    when there are any), exported as a Chrome trace
+    ``<log_dir>/trace_<pid>_<YYYYmmdd_HHMMSS_ffffff>.json`` when the region
+    ends (view it in Perfetto or chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        out = TraceFile(prof)
+        yield out
+    ts = datetime.now().strftime("%Y%m%d_%H%M%S_%f")
+    out.path = Path(log_dir) / f"trace_{os.getpid()}_{ts}.json"
+    prof.export_chrome_trace(str(out.path))
+
+
+def _at(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor on its own device when it is a tensor,
+    else on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                           device=resolve_device(device))
+
+
+def _host64(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def jacfwd(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Forward-mode Jacobian of an unbatched ``fn`` at ``x``, shape
+    fn(x).shape + x.shape: one dual-number push
+    (``torch.autograd.forward_ad``) per input direction.  ``torch.func``'s
+    ``jacfwd`` and ``jvp`` promote the tangent of a 0-dim float32
+    intermediate times a Python float to float64, which the plant's mixed
+    products then refuse on an unbatched state."""
+    import torch.autograd.forward_ad as fwad
+
+    cols = []
+    with fwad.dual_level():
+        for e in torch.eye(x.numel(), dtype=x.dtype, device=x.device):
+            out = fn(fwad.make_dual(x, e.reshape(x.shape)))
+            cols.append(fwad.unpack_dual(out).tangent)
+    return torch.stack(cols, dim=-1).reshape(cols[0].shape + x.shape)
+
+
+def locate_nan_in_jacobian(step_fn: Callable, x, u, *,
+                           device="cuda") -> dict:
+    """The state and control rows and columns of the discrete step's
+    Jacobians A = ∂step/∂x, B = ∂step/∂u (``torch.func.jacfwd``) that hold
+    non-finite entries at (x, u), and the non-finite entries of x and u
+    (forward mode, ``jacfwd``).
+    ``x`` and ``u`` are tensors (their device is used) or arrays (put on
+    ``device``)."""
+    x, u = _at(x, device), _at(u, x.device if isinstance(x, torch.Tensor)
+                               else device)
+    A = _host64(jacfwd(lambda xx: step_fn(xx, u), x))
+    B = _host64(jacfwd(lambda uu: step_fn(x, uu), u))
+    bad_A = np.argwhere(~np.isfinite(A))
+    bad_B = np.argwhere(~np.isfinite(B))
+    return {
+        "A_bad_entries": bad_A.tolist(),
+        "B_bad_entries": bad_B.tolist(),
+        "A_bad_rows": sorted(set(int(r) for r, _ in bad_A)),
+        "B_bad_rows": sorted(set(int(r) for r, _ in bad_B)),
+        "x_nonfinite": np.argwhere(~np.isfinite(_host64(x))).flatten().tolist(),
+        "u_nonfinite": np.argwhere(~np.isfinite(_host64(u))).flatten().tolist(),
+    }
+
+
+def fd_jacobian(fn: Callable, x, eps: float = 1e-4, *,
+                device="cuda") -> np.ndarray:
+    """Central-difference Jacobian of ``fn`` at ``x``: the steps are taken
+    in float64 on the host and ``fn`` is evaluated at their float32
+    rounding, on the device of ``x`` (a tensor) or on ``device``."""
+    dev = x.device if isinstance(x, torch.Tensor) else resolve_device(device)
+    x = (_host64(x) if isinstance(x, torch.Tensor)
+         else np.asarray(x, dtype=np.float64))
+    at = lambda z: fn(torch.as_tensor(z.astype(np.float32), device=dev))
+    f0 = _host64(at(x))
+    J = np.zeros(f0.shape + x.shape, dtype=np.float64)
+    for i in range(x.size):
+        dx = np.zeros_like(x)
+        dx.flat[i] = eps
+        J[..., i] = (_host64(at(x + dx)) - _host64(at(x - dx))) / (2 * eps)
+    return J
+
+
+def check_jacobian(fn: Callable, x, eps: float = 1e-4, rtol: float = 5e-2,
+                   atol: float = 1e-3, *, device="cuda") -> dict:
+    """The forward-mode Jacobian (``jacfwd``) at ``x`` (float32) against the
+    finite-difference oracle: the largest absolute and relative
+    deviation, its entry, and whether every entry is within
+    ``atol + rtol·max(|J_fd|, 1)``."""
+    J_ad = _host64(jacfwd(fn, _at(x, device)))
+    J_fd = fd_jacobian(fn, x, eps, device=device)
+    abs_err = np.abs(J_ad - J_fd)
+    denom = np.maximum(np.abs(J_fd), 1.0)
+    return {
+        "max_abs_err": float(abs_err.max()),
+        "max_rel_err": float((abs_err / denom).max()),
+        "ok": bool(np.all(abs_err <= atol + rtol * denom)),
+        "worst_entry": [int(i) for i in
+                        np.unravel_index(abs_err.argmax(), abs_err.shape)],
+    }
 
 
 def _np(t):

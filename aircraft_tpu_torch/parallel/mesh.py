@@ -36,16 +36,35 @@ RENDEZVOUS_TIMEOUT = datetime.timedelta(minutes=10)
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a 1-D mesh: its rank, the number of ranks, the
-    device its blocks live on and the process group the collectives run
-    in (``None``: the default group).  ``axis_names[0]`` names the axis
-    the ranks span; the others have size 1."""
+    """One rank's view of a mesh.  ``rank`` and ``size`` are its position
+    along the first axis (``axis_names[0]``, the axis a batch is split
+    over) and that axis' length, ``group`` the process group of the ranks
+    on that axis with it (``None``: the default group, when the mesh is
+    1-D), ``device`` where its blocks live.
+
+    A (dp x tp) mesh (``make_mesh(tp > 1)``) also carries its coordinates
+    ``dp`` and ``tp``, the axis lengths ``tp_size``, and ``tp_group``: the
+    ranks of its dp row, which share its batch block and split the
+    tensor axis (``group`` is then the ranks of its tp column, the dp
+    axis).  A 1-D mesh has ``tp = 0``, ``tp_size = 1`` and no
+    ``tp_group``."""
 
     rank: int
     size: int
     device: torch.device
     group: Optional[object] = None
     axis_names: tuple = (BATCH_AXIS, TENSOR_AXIS)
+    tp: int = 0
+    tp_size: int = 1
+    tp_group: Optional[object] = None
+
+    @property
+    def dp(self) -> int:
+        return self.rank
+
+    @property
+    def world(self) -> int:
+        return self.size * self.tp_size
 
 
 def current_mesh(device="cuda", axis_names=(BATCH_AXIS, TENSOR_AXIS)) -> Mesh:
@@ -69,19 +88,32 @@ def current_mesh(device="cuda", axis_names=(BATCH_AXIS, TENSOR_AXIS)) -> Mesh:
 
 def make_mesh(n_devices: Optional[int] = None, *, tp: int = 1,
               device="cuda") -> Mesh:
-    """The (dp x tp) mesh of the current process group: dp carries the
-    scenario batch.  ``n_devices`` must be the group's size (a smaller
-    mesh is a smaller group: spawn fewer ranks).  ``tp > 1`` is not
-    ported: the reference keeps that axis for surrogate training."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: the tensor axis carries surrogate training in the "
-            "reference, which is not ported")
+    """The (dp x tp) mesh of the current process group, its ranks laid
+    out as an (n // tp, tp) array as the reference lays its devices: rank
+    r is at dp r // tp, tp r % tp.  dp carries the scenario batch; tp
+    splits the surrogate MLP's hidden layer (``parallel/tensor.py``).
+    ``n_devices`` must be the group's size (a smaller mesh is a smaller
+    group: spawn fewer ranks) and a multiple of ``tp``.
+
+    ``tp = 1`` is the 1-D mesh of the default group.  For ``tp > 1`` every
+    rank opens one group per dp row and one per tp column (each rank
+    takes part in every ``new_group`` call, in the same order) and keeps
+    its own two."""
     mesh = current_mesh(device)
     if n_devices is not None and n_devices != mesh.size:
         raise ValueError(f"make_mesh({n_devices}) in a group of {mesh.size} "
                          "ranks")
-    return mesh
+    n = mesh.size
+    if tp < 1 or n % tp:
+        raise ValueError(f"tp={tp} does not divide a mesh of {n} ranks")
+    if tp == 1:
+        return mesh
+    dp, t = divmod(mesh.rank, tp)
+    rows = [dist.new_group(list(range(i * tp, (i + 1) * tp)))
+            for i in range(n // tp)]
+    cols = [dist.new_group(list(range(j, n, tp))) for j in range(tp)]
+    return dataclasses.replace(mesh, rank=dp, size=n // tp, group=cols[t],
+                               tp=t, tp_size=tp, tp_group=rows[dp])
 
 
 def batch_sharding(mesh: Mesh, batch: int) -> slice:
@@ -126,13 +158,18 @@ def shard_batch(tree, mesh: Mesh):
         mesh.device).contiguous(), tree)
 
 
+def _first_rank(mesh: Mesh) -> int:
+    """The global rank of the first rank of ``mesh.group``."""
+    return 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+
+
 def replicated(tree, mesh: Mesh):
-    """Every tensor of ``tree`` as rank 0 holds it, on every rank's
-    device (a broadcast from rank 0)."""
+    """Every tensor of ``tree`` as the first rank of the mesh's batch axis
+    holds it, on every rank's device (a broadcast from it)."""
     def bcast(t):
         # a copy: the broadcast writes into it, never into the caller's
         buf = _wire(t.to(mesh.device, copy=True))
-        dist.broadcast(buf, src=0, group=mesh.group)
+        dist.broadcast(buf, src=_first_rank(mesh), group=mesh.group)
         return buf.to(t.dtype)
 
     return _tree_map(bcast, tree)

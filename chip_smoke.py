@@ -184,18 +184,44 @@ must pass or the script exits non-zero without a result line:
               device's busy share, printed; the NLP oracle
               (solve_reference_nlp) on the quadrotor control problem
               (N=20, dt 0.1) on the card against the CPU (max |du| <
-              1e-4, relative cost < 1e-9), both walls printed.
+              1e-4, relative cost < 1e-9), both walls printed;
+              and, in the main process after the learning path, the
+              tooling (tooling_path), each piece held on the card
+              against the same code on the CPU within 2e-4 (1 + |ref|):
+              aircraft_tpu_torch.entry's flagship step (B=256, 10
+              substeps, MLP aero) timed by timed_jit_call;
+              check_jacobian of the plant "ok" and a profile_trace of
+              one step holding a kernel record; native_available() and
+              4,096 random Dubins problems, native against the Python
+              path within 1e-9; examples/full_course.py cut to 4
+              windows: each window kernel once per inner iteration of
+              every window solve; and, in the side process after
+              train_ddpg, the last examples (examples_path):
+              examples/openloop_sim.py at its full 500 steps, finite,
+              its first 50 knots held (the whole flight's difference
+              printed), aero_polars (71 alpha, default and MLP aero) and
+              the plotter's plant panels (with and without wind) on its
+              flight, the h5 round trip and the dashboard only where
+              h5py and matplotlib are installed (checked with find_spec,
+              one line naming what was skipped), and
+              examples/waypoint_racing.py --cuda-chol cut to 1 x 3 (warm
+              start 1 x 3): exactly N = 70 Cholesky launches per
+              backward pass; then entry.dryrun_multichip(1) over NCCL
+              (the sharded solve, the tensor-parallel MLP step and the
+              horizon-sharded sweep at 1 x 1; one card).
               Cuts, never a width or a
               shape: fit_surrogates' 150 epochs -> 20; the phase mode's reps 5 -> 2; the warm
               mode's 6 warm windows -> 2; the roofline mode's reps 3 -> 2; oppoints'
               six points -> two, warmup 6 -> 0, reps 3 -> 1; the scaling
               mode's 2 x 6 -> 1 x 2 and reps 3 -> 1; batched_mpc's 5
-              windows -> 2;
+              windows -> 2; waypoint_racing's 6 x 20 (warm 1 x 30) ->
+              1 x 3; full_course's whole course -> 4 windows;
    Every entry point that builds the headline problem is handed the
    plant's best glide, found once per process (mlp_glide): its three trim
    searches took ~8 s at each of a dozen call sites.  Once the kernels'
    device times are taken (after the serving shapes), the planners and
-   the fleet scale (and the quadrotor and train_ddpg) run in a second
+   the fleet scale (and the quadrotor, train_ddpg, openloop_sim,
+   waypoint_racing and the entry module's dry run) run in a second
    process on the same card
    (chip_smoke.py --side RESULT, its own counts and clock) beside the
    other paths, to keep the smoke within its limit; its log is printed
@@ -2012,14 +2038,14 @@ DDPG_TRACE = 20            # traced DDPG updates at batch 64
 NLP_QUAD = dict(N=20, dt=0.1, target=(2.0, 1.0, -4.0), maxiter=250)
 
 
-def learn_held(label, out, ref, tol):
+def learn_held(label, out, ref, tol, path="learning"):
     """max |out - ref| / (1 + |ref|) printed and held within tol."""
     import numpy as np
 
     out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
     check(out.shape == ref.shape, f"{label}: shapes {out.shape}, {ref.shape}")
     err = float(np.max(np.abs(out - ref) / (1.0 + np.abs(ref))))
-    print(f"learning on the card: {label}: max err over (1 + |ref|) "
+    print(f"{path} on the card: {label}: max err over (1 + |ref|) "
           f"{err:.3e} (tol {tol})", flush=True)
     check(err <= tol, f"{label}: card and CPU differ by {err}")
     return err
@@ -2321,6 +2347,227 @@ def learning_train_ddpg(device="cuda"):
           f"train_ddpg: {ep['updates']} updates, stage {ep['stage']}")
     return {k: ep[k] for k in ("episodes", "env_steps", "updates", "stage",
                                "wall_s")}
+
+
+TOOL_TOL = 2e-4            # card against CPU, of 1 + |ref|
+TOOL_PATHS = 4096          # random Dubins problems, native against Python
+TOOL_OPENLOOP_HELD = 50    # knots of openloop_sim held card against CPU
+TOOL_RACING = (1, 3)       # waypoint_racing's 6 x 20 (and warm 1 x 30), cut
+TOOL_COURSE_WINDOWS = 4    # full_course's whole course, cut
+
+
+def tooling_path(device="cuda"):
+    """The tooling remainders in the main process (profiler traces taken
+    in the side process have lost records), each held against the same
+    code on the CPU (``TOOL_TOL``): entry()'s flagship step at B=256
+    (timed by ``timed_jit_call``); check_jacobian and a profile_trace
+    holding a kernel record; the native batch Dubins against its Python
+    path on TOOL_PATHS problems; full_course cut to TOOL_COURSE_WINDOWS
+    windows (each window kernel once per inner iteration of every window
+    solve).  The other examples run in the side process
+    (``examples_path``).  Returns (record, launches by path)."""
+    import numpy as np
+    import torch
+
+    from aircraft_tpu_torch import entry, native
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.dubins.dubins2d import WORDS, shortest_path
+    from aircraft_tpu_torch.dynamics.aircraft import (AircraftParams,
+                                                      state_derivative)
+    from aircraft_tpu_torch.examples import full_course
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+    from aircraft_tpu_torch.observability import (check_jacobian,
+                                                  profile_trace,
+                                                  timed_jit_call)
+
+    out_dir = BUILD_DIR / "chip_smoke_tooling"
+    rec, launches = {}, {}
+    held = lambda label, a, b: learn_held(label, a, b, TOOL_TOL, "tooling")
+    sync = lambda: torch.cuda.synchronize() if device == "cuda" else None
+
+    # entry(): the flagship step, card against CPU
+    fn, (x0, us) = entry.entry(device)
+    run = timed_jit_call(fn, x0, us, reps=10)
+    fn_c, (x0_c, us_c) = entry.entry("cpu")
+    held("entry() step B=256", run.result.cpu().numpy(),
+         fn_c(x0_c, us_c).numpy())
+    rec["entry"] = {"first_call_excess_s": run.compile_s,
+                    "step_s": run.execute_s}
+    print(f"tooling: entry() B=256 step {run.execute_s * 1e3:.3f} ms warm, "
+          f"first call {run.compile_s:.3f} s above it", flush=True)
+
+    # check_jacobian and profile_trace
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft, device=device)
+    xj = torch.tensor(cfg.waypoints.initial_state, dtype=torch.float32,
+                      device=device)
+    uj = torch.zeros(7, device=device)
+    jac = check_jacobian(lambda xx: state_derivative(params, xx, uj), xj)
+    print(f"tooling: check_jacobian of the plant on the card: "
+          f"{json.dumps(jac)}", flush=True)
+    check(jac["ok"], f"check_jacobian: {jac}")
+    with profile_trace(out_dir / "trace") as tr:
+        fn(x0, us)
+        sync()
+    n_rec = tr.kernel_records()
+    print(f"tooling: profile_trace wrote {tr.path.name} with {n_rec} kernel "
+          "records", flush=True)
+    check(device != "cuda" or n_rec > 0, "profile_trace: no kernel record")
+    rec["check_jacobian"], rec["trace_kernel_records"] = jac, n_rec
+
+    # the native batch Dubins against its Python path
+    check(native.native_available(), "the native Dubins engine did not build")
+    rng = np.random.default_rng(0)
+    qis = np.column_stack([rng.uniform(-50, 50, TOOL_PATHS),
+                           rng.uniform(-50, 50, TOOL_PATHS),
+                           rng.uniform(0, 2 * np.pi, TOOL_PATHS)])
+    qfs = np.column_stack([rng.uniform(-50, 50, TOOL_PATHS),
+                           rng.uniform(-50, 50, TOOL_PATHS),
+                           rng.uniform(0, 2 * np.pi, TOOL_PATHS)])
+    rhos = rng.uniform(1.0, 60.0, TOOL_PATHS)
+    t0 = time.perf_counter()
+    paths, ok = native.shortest_batch(qis, qfs, rhos)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = np.zeros_like(paths)
+    for b in range(TOOL_PATHS):
+        p = shortest_path(qis[b], qfs[b], float(rhos[b]))
+        py[b] = [WORDS.index(p.word), *p.params, p.length]
+    py_s = time.perf_counter() - t0
+    d_err = float(np.abs(paths - py).max())
+    print(f"tooling: native Dubins {TOOL_PATHS} paths in {native_s * 1e3:.2f} "
+          f"ms, Python {py_s:.2f} s, max |difference| {d_err:.3e}",
+          flush=True)
+    check(ok.all() and d_err <= 1e-9, f"native Dubins: {d_err}, "
+          f"{int((~ok).sum())} not found")
+    rec["dubins_max_abs_diff"] = d_err
+
+    # full_course, cut
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with CountWindowSolves() as solves:
+        report, flight = full_course.run(max_windows=TOOL_COURSE_WINDOWS,
+                                         device=device, verbose=False)
+    course_s = time.perf_counter() - t0
+    print(f"tooling: full_course cut to {TOOL_COURSE_WINDOWS} windows in "
+          f"{course_s:.1f} s: " + json.dumps({k: report[k] for k in (
+              "windows", "retries", "abort_reason", "misses_m",
+              "p50_window_wall_s")}), flush=True)
+    check(report["windows"] == TOOL_COURSE_WINDOWS
+          and report["abort_reason"] is None
+          and bool(np.isfinite(flight["states"]).all()),
+          f"full_course: {report}")
+    if device == "cuda":
+        launches["full_course"] = check_window_launches(
+            "full_course (6 candidates per window as one batch)", solves.n,
+            4 * 20)
+    rec["full_course"] = {"wall_s": course_s, "windows": report["windows"]}
+    return rec, launches
+
+
+def examples_path(device="cuda"):
+    """The last examples in the side process, each held against the same
+    code on the CPU (``TOOL_TOL``): openloop_sim at its full 500 steps
+    (its first TOOL_OPENLOOP_HELD knots held, the whole difference
+    printed), aero_polars (71 α, default and MLP aero) and the plotter's
+    plant panels on its flight (with and without wind), its h5 round trip
+    and dashboard where h5py and matplotlib are installed;
+    waypoint_racing --cuda-chol cut to TOOL_RACING (exactly N Cholesky
+    launches per backward pass).  Returns (record, launches by path)."""
+    import numpy as np
+
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+    from aircraft_tpu_torch.examples import openloop_sim, waypoint_racing
+    from aircraft_tpu_torch.kernels._build import BUILD_DIR
+    from aircraft_tpu_torch.plotting import TrajectoryPlotter, aero_polars
+    from aircraft_tpu_torch.utils import TrajectoryData, missing_packages
+
+    out_dir = BUILD_DIR / "chip_smoke_tooling"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rec, launches = {}, {}
+    held = lambda label, a, b: learn_held(label, a, b, TOOL_TOL, "tooling")
+    cfg = glider_config()
+    params = AircraftParams.from_config(cfg.aircraft, device=device)
+
+    # openloop_sim at its full length, card against CPU from the card's trim
+    t0 = time.perf_counter()
+    ol = openloop_sim.run(device=device)
+    ol_s = time.perf_counter() - t0
+    ol_c = openloop_sim.run(u_trim=ol["u_trim"], device="cpu")
+    xs, xs_c = ol["xs"], ol_c["xs"]
+    check(np.isfinite(xs).all(), f"openloop_sim: first NaN {ol['first_nan']}")
+    held(f"openloop_sim first {TOOL_OPENLOOP_HELD} knots",
+         xs[:TOOL_OPENLOOP_HELD + 1], xs_c[:TOOL_OPENLOOP_HELD + 1])
+    whole = float(np.max(np.abs(xs - xs_c) / (1.0 + np.abs(xs_c))))
+    print(f"tooling: openloop_sim {xs.shape[0] - 1} steps in {ol_s:.1f} s "
+          f"(trim {ol['trim_s']:.1f} s, rollout {ol['rollout_s']:.1f} s); "
+          f"card against CPU over the whole flight: max err over (1 + |ref|)"
+          f" {whole:.3e} (printed, not held: open-loop rounding grows)",
+          flush=True)
+    rec["openloop"] = {"wall_s": ol_s, "whole_err": whole}
+
+    # the numbers behind the panels, card against CPU
+    mlp = load_mlp(device=device)
+    for label, coeff in (("default", None), ("mlp", mlp)):
+        pc = AircraftParams.from_config(cfg.aircraft, coeff=coeff,
+                                        device=device)
+        alphas = np.linspace(-15.0, 20.0, 71)
+        held(f"aero_polars {label} 71 alpha", aero_polars(pc, alphas),
+             aero_polars(pc.to("cpu"), alphas))
+    for wind in (None, [5.0, -2.0, 1.0]):
+        card = TrajectoryPlotter(params=params, wind=wind)._plant_panels(
+            xs, ol["us"])
+        host = TrajectoryPlotter(params=params.to("cpu"), wind=wind)\
+            ._plant_panels(xs, ol["us"])
+        for name, a, b in zip(("alpha", "beta", "forces", "moments"), card,
+                              host):
+            held(f"plant panels {name} wind {wind}", a, b)
+
+    missing = missing_packages("h5py", "matplotlib")
+    if missing:
+        print(f"tooling: not installed on this host: {', '.join(missing)}; "
+              "skipped " + ", ".join({"h5py": "the h5 round trip",
+                                      "matplotlib": "the dashboards"}[m]
+                                     for m in missing), flush=True)
+    data = TrajectoryData(state=xs, control=ol["us"],
+                          time=np.arange(xs.shape[0]) * openloop_sim.DT)
+    if "h5py" not in missing:
+        h5 = out_dir / "openloop.h5"
+        h5.unlink(missing_ok=True)
+        data.save_h5(h5)
+        back = TrajectoryData.load_h5(h5)
+        check(np.array_equal(back.state, xs), "h5 round trip")
+    if "matplotlib" not in missing:
+        TrajectoryPlotter(params=params).save(data, out_dir / "openloop.png")
+
+    # waypoint_racing on the Cholesky kernel, cut
+    reset_all_counts()
+    t0 = time.perf_counter()
+    race, _ = waypoint_racing.run(al_iters=TOOL_RACING[0],
+                                  inner_iters=TOOL_RACING[1],
+                                  warm_iters=TOOL_RACING, cuda_chol=True,
+                                  device=device)
+    race_s = time.perf_counter() - t0
+    n = race["num_nodes"]
+    want = n * TOOL_RACING[0] * TOOL_RACING[1]
+    print(f"tooling: waypoint_racing --cuda-chol at {TOOL_RACING[0]} x "
+          f"{TOOL_RACING[1]} in {race_s:.1f} s: "
+          + json.dumps({k: race[k] for k in (
+              "closest_approaches", "cost", "violation", "finite",
+              "cholesky_launches", "chol_fallbacks", "max_real_eig")}),
+          flush=True)
+    check(race["finite"], "waypoint_racing: non-finite trajectory")
+    if device == "cuda":
+        check(race["cholesky_launches"] == want,
+              f"waypoint_racing: {race['cholesky_launches']} Cholesky "
+              f"launches, expected {want} ({n} per backward pass)")
+    launches["waypoint_racing"] = race["cholesky_launches"]
+    rec["waypoint_racing"] = {"wall_s": race_s, **{k: race[k] for k in (
+        "closest_approaches", "cholesky_launches", "chol_fallbacks")}}
+
+    return rec, launches
 
 
 # the plant-breadth phase: (model, quaternion, substeps, integration) rows
@@ -2675,7 +2922,8 @@ SIDE = []     # the side process, while it runs
 
 def side_paths(result_path) -> int:
     """``chip_smoke.py --side RESULT``: the planners, the fleet scale,
-    the quadrotor's time-optimal solve and examples/train_ddpg.py, each
+    the quadrotor's time-optimal solve, examples/train_ddpg.py, the last
+    examples (``examples_path``) and the entry module's dry run, each
     path with every count reset just before it, in a process of its
     own that runs beside the main process's later paths once the kernels'
     device times are taken.  Writes what the report needs to RESULT."""
@@ -2705,11 +2953,36 @@ def side_paths(result_path) -> int:
 
     phase("path: learning, examples/train_ddpg.py")
     train = learning_train_ddpg()
+
+    phase("path: the last examples (openloop_sim, waypoint_racing)")
+    t0 = time.perf_counter()
+    examples, example_launches = examples_path()
+    print(f"examples: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("path: entry module, dryrun_multichip(1) over NCCL")
+    dry = entry_dryrun()
     Path(result_path).write_text(json.dumps({
         "plan_launches": plan_launches, "sweep_rel": sweep_rel,
         "fleet": fleet, "quad_launches": quad_launches,
-        "train_ddpg": train}))
+        "train_ddpg": train, "examples": examples,
+        "example_launches": example_launches, "dryrun": dry}))
     return 0
+
+
+def entry_dryrun(device="cuda"):
+    """aircraft_tpu_torch.entry.dryrun_multichip(1): the sharded solve,
+    the tensor-parallel MLP step and the horizon-sharded sweep on a
+    one-rank mesh (NCCL takes one rank per card); each step raises on
+    failure.  Returns its rank's record."""
+    from aircraft_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    (r,) = entry.dryrun_multichip(1, device=device)
+    rec = {k: r[k] for k in ("coords", "shape", "mean_cost", "loss",
+                             "riccati_max_abs_dK")}
+    rec["wall_s"] = time.perf_counter() - t0
+    print("entry dry run: " + json.dumps(rec), flush=True)
+    return rec
 
 
 def start_side():
@@ -2737,7 +3010,7 @@ def finish_side(result, log) -> dict:
     SIDE.clear()
     print(log.read_text(), end="", flush=True)
     check(rc == 0, f"the side process (planners, fleet scale, quadrotor, "
-          f"train_ddpg) exited {rc}")
+          f"train_ddpg, examples, entry dry run) exited {rc}")
     return json.loads(result.read_text())
 
 
@@ -2995,10 +3268,18 @@ def main() -> int:
     learning, learn_launches = learning_path()
     print(f"learning: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("side process: planners, fleet scale, quadrotor and train_ddpg "
-          "(its log, its own clock)")
+    phase("path: tooling, the entry module and examples/full_course.py")
+    t0 = time.perf_counter()
+    tooling, tool_launches = tooling_path()
+    print(f"tooling: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("side process: planners, fleet scale, quadrotor, train_ddpg, the "
+          "last examples and the entry module's dry run (its log, its own "
+          "clock)")
     side = finish_side(side_result, side_log)
     print("train_ddpg record: " + json.dumps(side["train_ddpg"]), flush=True)
+    print("examples record: " + json.dumps(side["examples"]), flush=True)
+    print("entry dry run record: " + json.dumps(side["dryrun"]), flush=True)
     plan_launches, sweep_rel, fleet = (side["plan_launches"],
                                        side["sweep_rel"], side["fleet"])
     quad_launches = side["quad_launches"]
@@ -3051,6 +3332,7 @@ def main() -> int:
             "whole_warm_start": plan_launches["whole_warm_start"][row["name"]],
             "plant_breadth_poly_window": plant_launches[row["name"]],
             "learning_trained_mlp_window": learn_launches[row["name"]],
+            "tooling_full_course": tool_launches["full_course"][row["name"]],
             **{path: fleet[path][row["name"]] for path in (
                 "roofline", "oppoints", "batched_mpc")}}
     kernels[2]["launches_by_path"] = {
@@ -3060,6 +3342,8 @@ def main() -> int:
             "phase", "warm", "solve_batch_sharded", "seq_riccati_blocks",
             "scaling")}}
     kernels[2]["launches_by_path"].update(quad_launches)
+    kernels[2]["launches_by_path"]["examples_waypoint_racing"] = (
+        side["example_launches"]["waypoint_racing"])
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
                                     quad_holds[4]["err"])
     for m, h in quad_holds.items():

@@ -48,6 +48,41 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+NEW_ENTRY_MODULES = (
+    "aircraft_tpu_torch.entry", "aircraft_tpu_torch.parallel.tensor",
+    "aircraft_tpu_torch.plotting", "aircraft_tpu_torch.plotting.plotting",
+    "aircraft_tpu_torch.examples.full_course",
+    "aircraft_tpu_torch.examples.openloop_sim",
+    "aircraft_tpu_torch.examples.waypoint_racing")
+
+
+def test_entry_module_plotting_and_examples_import_alone():
+    """The entry module, the tensor-parallel step, plotting and the last
+    three examples import with JAX, matplotlib and h5py all poisoned:
+    the drawing and the HDF5 files import theirs only when used."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'matplotlib', 'h5py'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for name in {NEW_ENTRY_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'aircraft_tpu' or"
+        " m.startswith('aircraft_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    for name in NEW_ENTRY_MODULES:
+        rel = Path(*name.split(".")).with_suffix(".py")
+        path = ROOT / rel if (ROOT / rel).exists() else ROOT / rel.with_suffix(
+            "") / "__init__.py"
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -97,6 +132,10 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                                              stability_analysis,
                                              time_optimal_quad)
     from aircraft_tpu_torch.examples import fit_surrogates, train_ddpg
+    from aircraft_tpu_torch import entry, observability
+    from aircraft_tpu_torch.examples import (full_course, openloop_sim,
+                                             waypoint_racing)
+    from aircraft_tpu_torch.plotting import TrajectoryPlotter
     from aircraft_tpu_torch.rl import ddpg
     from aircraft_tpu_torch.solvers.reference_nlp import solve_reference_nlp
     from aircraft_tpu_torch.surrogates import extras, models
@@ -195,7 +234,21 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                  lambda: fit_surrogates.run("aero.csv"),
                  lambda: fit_surrogates.main(["--data", "aero.csv"]),
                  lambda: train_ddpg.run(1, 1),
-                 lambda: train_ddpg.main([])):
+                 lambda: train_ddpg.main([]),
+                 lambda: entry.entry(),
+                 lambda: entry.dryrun_multichip(1),
+                 lambda: entry.main([]),
+                 lambda: openloop_sim.run(),
+                 lambda: openloop_sim.main([]),
+                 lambda: waypoint_racing.run(),
+                 lambda: waypoint_racing.main([]),
+                 lambda: full_course.run(),
+                 lambda: full_course.main([]),
+                 lambda: TrajectoryPlotter(),
+                 lambda: observability.check_jacobian(np.sin, np.zeros(2)),
+                 lambda: observability.fd_jacobian(np.sin, np.zeros(2)),
+                 lambda: observability.locate_nan_in_jacobian(
+                     lambda x, u: x, np.zeros(2), np.zeros(1))):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
