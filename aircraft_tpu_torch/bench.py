@@ -10,11 +10,21 @@ shifted controls and the violation-gated duals to the next window.
 ``--solver fused`` runs every inner iteration as the two window kernels;
 ``--solver ilqr`` runs ``solvers/ilqr.solve_batch`` (the reference's
 ``BENCH_FUSED=0``), whose Quu solves take the batched-Cholesky kernel
-with ``--cuda-chol`` (``BENCH_PALLAS_CHOL=1``).  On ``cpu`` every kernel
-runs its plain version.
+with ``--cuda-chol`` (``BENCH_PALLAS_CHOL=1``).  The reference's
+``BENCH_BATCH_MINOR`` has no switch here: ``solve_batch(batch_minor=True)``
+is the same solve on the card.  On ``cpu`` every kernel runs its plain
+version.
+
+The set-up (the plant's best-glide speed and L/D, which lay out the
+track, and the fleet trim that seeds the controls) comes from trim
+searches run on the host in float64 whatever ``--device`` is, so every
+device builds the same problem.  ``--seed 0`` (the default) starts them
+from the reference bench's own start clouds (drawn from
+``jax.random.PRNGKey(0)``, stored in ``solvers/trim_starts.npz``); any
+other seed draws the clouds from ``torch.Generator().manual_seed(seed)``.
 
     python -m aircraft_tpu_torch.bench [--solver fused|ilqr] [--cuda-chol]
-        [--batch 256] [--warmup 6] [--reps 3]
+        [--batch 256] [--warmup 6] [--reps 3] [--seed 0]
 
 prints one JSON line with the reference bench's headline fields plus
 ``device``, ``fused_kernels``, ``matmul_precision``, ``solver`` and the
@@ -121,7 +131,12 @@ from aircraft_tpu_torch.solvers import ilqr
 from aircraft_tpu_torch.solvers import ocp as ocp_mod
 from aircraft_tpu_torch.solvers import riccati
 from aircraft_tpu_torch.solvers.fused import make_fused_solver
-from aircraft_tpu_torch.solvers.trim import multistart_trim
+from aircraft_tpu_torch.solvers.trim import (
+    TrimResult,
+    multistart_trim,
+    reference_start_cloud,
+    start_cloud,
+)
 
 BASELINE_SOLVES_PER_S = 5.0   # one N=50 window per 0.2 s of committed flight
 N_HORIZON = 50
@@ -143,14 +158,30 @@ def headline_config(al_iters=3, inner_iters=12, ls=6, *, row_penalty=True,
                         penalty_per_row=row_penalty)
 
 
+def setup_trim(params, n_starts, target_airspeed, *, seed=0):
+    """The set-up's trim search, the same on every device:
+    ``multistart_trim(prefer_coordinated=True)`` on the host in float64
+    from ``n_starts`` starts, its result in float32 on ``params``' device.
+    Seed 0 takes the reference bench's start cloud (its draw from
+    ``jax.random.PRNGKey(0)``, ``trim.reference_start_cloud``); any other
+    seed draws one from ``torch.Generator().manual_seed(seed)``."""
+    host = params.to("cpu").to(torch.float64)
+    z0s = (reference_start_cloud(n_starts) if seed == 0 else
+           start_cloud(n_starts, torch.Generator().manual_seed(seed), "cpu"))
+    t = multistart_trim(host, torch.as_tensor(z0s, dtype=torch.float64),
+                        target_airspeed=float(target_airspeed),
+                        prefer_coordinated=True)
+    return TrimResult(*(x.to(params.device, torch.float32)
+                        if x.is_floating_point() else x.to(params.device)
+                        for x in t))
+
+
 def plant_best_glide(params, speeds=(24.0, 28.0, 32.0), seed=0):
-    """(v_ref, glide_ld): the trim speed with the flattest glide, the
-    track laid out at 90% of that L/D."""
+    """(v_ref, glide_ld): the trim speed with the flattest glide
+    (``setup_trim``, 8 starts), the track laid out at 90% of that L/D."""
     best = None
     for v in speeds:
-        gen = torch.Generator().manual_seed(seed)
-        t = multistart_trim(params, n_starts=8, target_airspeed=float(v),
-                            prefer_coordinated=True, generator=gen)
+        t = setup_trim(params, 8, v, seed=seed)
         vel = t.state[3:6].detach().cpu().numpy()
         gamma = float(np.arctan2(vel[2], np.hypot(vel[0], vel[1])))
         ld = 1.0 / max(np.tan(gamma), 1e-3)
@@ -205,11 +236,10 @@ def fleet_rows(track, batch, v_ref, *, s_span=(0.1, 0.9)) -> np.ndarray:
 
 def fleet_states(params, track, batch, v_ref, *, s_span=(0.1, 0.9), seed=0):
     """`batch` gliders at the serving speed along the track
-    (``fleet_rows``), and the trim that seeds their controls.  Returns
-    (z0s (B, 14), trim)."""
-    gen = torch.Generator().manual_seed(seed)
-    trim = multistart_trim(params, n_starts=32, target_airspeed=v_ref + 2.0,
-                           prefer_coordinated=True, generator=gen)
+    (``fleet_rows``), and the trim that seeds their controls
+    (``setup_trim``, 32 starts at ``v_ref + 2``).  Returns (z0s (B, 14),
+    trim)."""
+    trim = setup_trim(params, 32, v_ref + 2.0, seed=seed)
     z = fleet_rows(track, batch, v_ref, s_span=s_span)
     return torch.as_tensor(z, device=params.device), trim
 
@@ -284,8 +314,8 @@ def run_headline(device="cuda", *, batch=256, horizon=N_HORIZON, al_iters=3,
                  reg_escalate=100.0, glide=None, on_window=None) -> dict:
     """Cold window, `warmup` chained windows, then `reps` timed chained
     windows; returns the headline record.  ``solver`` and ``cuda_chol``
-    as ``headline_chain``; ``row_penalty`` as ``headline_config``;
-    ``glide`` as ``build_problem``.  ``on_window(w, sols)``, when given,
+    as ``headline_chain``; ``seed`` as ``setup_trim``; ``row_penalty`` as
+    ``headline_config``; ``glide`` as ``build_problem``.  ``on_window(w, sols)``, when given,
     is called after each window w = 0 .. warmup + reps (outside the timed
     span) and adds nothing to the record."""
     dev = resolve_device(device)
@@ -1446,7 +1476,12 @@ def main(argv=None) -> None:
                    help="scaling mode: scenarios per rank")
     p.add_argument("--out", default=None,
                    help="oppoints and scaling modes: the record's path")
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0,
+                   help="the set-up's trim start clouds (best glide and "
+                   "fleet trim, searched on the host in float64, so every "
+                   "device builds the same problem): 0 takes the reference "
+                   "bench's draw from jax.random.PRNGKey(0), any other "
+                   "seed a torch.Generator draw")
     a = p.parse_args(argv)
     whole = a.mode == "whole"
     light = a.mode in ("warm", "roofline", "scaling")   # 2 x 6

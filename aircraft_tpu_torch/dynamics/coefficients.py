@@ -72,7 +72,15 @@ def _tensors(arrays, keys, device) -> dict:
 
 
 def _moved(cp, keys, device):
-    return replace(cp, **{k: getattr(cp, k).to(device) for k in keys})
+    """``cp`` with its tensors ``keys`` passed through ``Tensor.to(device)``;
+    a dtype casts the floating ones only (the polynomial's factor indices
+    stay integers)."""
+    def move(t):
+        if isinstance(device, torch.dtype) and not t.is_floating_point():
+            return t
+        return t.to(device)
+
+    return replace(cp, **{k: move(getattr(cp, k)) for k in keys})
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ batch first and the iteration runs once for the whole batch.
   so every scenario sees the same regularisation trail and ``grad_norm``
   as in the reference.
 
-Not ported: ``batch_minor``, a TPU lane-layout choice with no effect on
-the result, raises NotImplementedError.
+``solve_batch(batch_minor=True)`` is accepted and solves as
+``batch_minor=False`` does: the reference's flag only places the batch on
+the TPU's lanes.
 """
 
 from __future__ import annotations
@@ -408,13 +409,15 @@ def solve_batch(ocp: OCPFunctions, x0s: torch.Tensor, us_inits: torch.Tensor,
                 batch_minor: bool = False, *,
                 cuda_chol: bool = False) -> ILQRSolution:
     """Thousands of simultaneous window solves: x0s (B, n), us_inits
-    (B, N, m), optional per-scenario dual warm starts ``al_inits``.  The
-    batch is the leading axis of every tensor already, so this is
-    ``solve_impl``.  ``batch_minor`` moved the batch onto the TPU's lanes
-    in the reference and changes no result; it is not ported."""
-    if batch_minor:
-        raise NotImplementedError(
-            "batch_minor is a TPU lane-layout option; the port is "
-            "batch-leading")
+    (B, N, m), optional per-scenario dual warm starts ``al_inits``; inputs
+    and outputs batch-leading.  The batch is the leading axis of every
+    tensor already, so this is ``solve_impl``.
+
+    ``batch_minor`` is the reference's interface: there it maps the batch
+    as the minor-most axis so the scenarios ride the TPU's 128 lanes
+    instead of each 7- or 13-wide tensor padding its minor dimension.  A
+    CUDA card has no lane tiling of that kind (the batched kernels pick
+    their own thread layout), so the flag selects no other layout here
+    and the solve is the same either way."""
     return solve_impl(ocp, x0s, us_inits, config, al_inits,
                       cuda_chol=cuda_chol)

@@ -15,6 +15,7 @@ eigendecompositions run on the host.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -34,6 +35,9 @@ _NZ = 12
 START_MID = (50.0, 0.0, 2.0, 0.0, 0.05, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 START_SPREAD = (10.0, 1.0, 3.0, 0.05, 0.1, 0.05, 1.0, 1.0, 1.0, 0.1, 0.02,
                 0.02)
+# the reference's start clouds, drawn once from jax.random.PRNGKey(0) and
+# stored as data: torch cannot replay JAX's random stream
+REFERENCE_STARTS = Path(__file__).with_name("trim_starts.npz")
 
 
 class TrimResult(NamedTuple):
@@ -125,6 +129,19 @@ def start_cloud(n_starts: int, generator: torch.Generator,
     return z.to(dev)
 
 
+def reference_start_cloud(n_starts: int) -> np.ndarray:
+    """(n_starts, 12) float32: the reference's multistart cloud,
+    START_MID + START_SPREAD · N(0, 1) drawn from jax.random.PRNGKey(0)
+    and clipped to ``default_trim_bounds()``, for the sizes its bench draws
+    (8 per best-glide speed, 32 for the fleet trim)."""
+    with np.load(REFERENCE_STARTS) as d:
+        key = f"starts_{n_starts}"
+        if key not in d.files:
+            raise ValueError(f"no reference start cloud of {n_starts} "
+                             f"starts (have {sorted(d.files)})")
+        return d[key].copy()
+
+
 def _take(sols: TrimResult, idx) -> TrimResult:
     return TrimResult(*(t[idx] for t in sols))
 
@@ -139,17 +156,18 @@ def multistart_trim(params: AircraftParams, z0s: Optional[torch.Tensor] = None,
     drawn from ``generator``.  ``prefer_coordinated`` picks, among the
     converged starts, the one with the least sideslip instead of the least
     residual.  When no start converges, a ladder of glide-angle seeds is
-    tried and every found point is re-solved without the speed penalty."""
-    dev = params.device
+    tried and every found point is re-solved without the speed penalty.
+    The search runs in the dtype of ``params`` (float32, or float64 for
+    parameters cast with ``params.to(torch.float64)``)."""
+    dev, dt = params.device, params.mass.dtype
     if bounds is None:
         bounds = default_trim_bounds()
-    lb, ub = (torch.as_tensor(b, dtype=torch.float32, device=dev)
-              for b in bounds)
+    lb, ub = (torch.as_tensor(b, dtype=dt, device=dev) for b in bounds)
     if z0s is None:
         gen = generator if generator is not None else torch.Generator()
         z0s = start_cloud(n_starts, gen, dev)
     z0s = torch.minimum(torch.maximum(
-        torch.as_tensor(z0s, dtype=torch.float32, device=dev), lb), ub)
+        torch.as_tensor(z0s, dtype=dt, device=dev), lb), ub)
     sols = solve_trim(params, z0s, (lb, ub), target_airspeed)
 
     def lat(state):
@@ -172,7 +190,7 @@ def multistart_trim(params: AircraftParams, z0s: Optional[torch.Tensor] = None,
                                   0.0, a0 - g, 0.0, 0.0, de0, 0.0,
                                   0.0, 0.0, 0.0])
         z0s_g = torch.minimum(torch.maximum(torch.tensor(
-            glide, dtype=torch.float32, device=dev), lb), ub)
+            glide, dtype=dt, device=dev), lb), ub)
         sols_g = solve_trim(params, z0s_g, (lb, ub), target_airspeed)
         sols = TrimResult(*(torch.cat([a, b], 0)
                             for a, b in zip(sols, sols_g)))

@@ -11,14 +11,21 @@ by running every solver on every set-up, window by window:
 * ``trims`` (no JAX) runs the port's set-up trim searches start by
   start from the same start clouds on the CPU in float32 and float64 and,
   with ``--device cuda``, on the card: each start's residual, sideslip,
-  L/D and controls, the start picked, and the set-up the bench finds on
-  each device (``trims_<device>.json``);
+  L/D and controls, the start picked, and the float32 set-up found on
+  each device from the torch clouds (``device_f32_setup``: the bench's
+  set-up before its searches moved to the host; ``trims_<device>.json``);
 * ``setup`` prints, for both packages, each candidate speed's L/D and the
   pick, the fleet trim (``multistart_trim`` at ``v_ref + 2``, 32 starts,
   coordinated) and the track's length and end altitude, and saves the
-  set-ups as numpy arrays: ``ref``, ``port`` (the port's on the CPU) and,
-  when ``trims_cuda.json`` from a card run is under ``--out``, ``card``
-  (the set-up the bench finds on the card, on the same stations);
+  set-ups as numpy arrays: ``ref``, ``host`` (what the port's bench
+  builds on every device: its searches on the host in float64 from the
+  reference's start clouds), ``port`` (``device_f32_setup`` on the CPU)
+  and, when ``trims_cuda.json`` from a card run is under ``--out``,
+  ``card`` (``device_f32_setup`` on the card, on the same stations);
+* ``headline`` (no JAX) runs the port's headline chain at the bench's
+  default depth on ``--device`` for each of ``--seeds`` (the set-up's
+  start clouds: 0 the reference's) and prints each window's summary, the
+  set-up and the gate (``headline_<device>.json``);
 * an arm ``<solver>@<set-up>`` runs the chain (3 AL × 12 inner, row
   penalty, 6 step sizes, commit 20, reset at 5.0) for ``--windows`` (10)
   windows on the set-up's fleet rows ``[offset::stride]`` (32 of 256
@@ -45,9 +52,10 @@ by running every solver on every set-up, window by window:
   the table.
 
     python chain_crossing.py [--out build/aircraft_tpu_torch/chain_crossing]
-        [--arm all|setup|trims|table|<solver>@<set-up>|batch-<dtype>@<set-up>
-         |same-<solver>@<set-up>] [--stride 8] [--offset 0] [--windows 10]
-        [--device cuda] [--card-log chip_smoke.log]
+        [--arm all|setup|trims|headline|table|<solver>@<set-up>
+         |batch-<dtype>@<set-up>|same-<solver>@<set-up>] [--stride 8]
+        [--offset 0] [--windows 10] [--device cuda] [--seeds 0,1,2,3]
+        [--card-log chip_smoke.log]
 
 The reference arms import JAX; the port's package imports none of it.
 Writes ``setups.npz``, ``<arm>.json`` (``<arm>+<offset>.json`` for an
@@ -70,7 +78,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SOLVERS = ("ref", "ref-b32", "port-ilqr", "port-fused")
-SETUPS = ("ref", "port", "card")
+SETUPS = ("ref", "host", "port", "card")
 ARMS = tuple(f"{s}@{u}" for u in SETUPS for s in SOLVERS)
 SAME = tuple(f"same-{s}@{u}" for u in SETUPS
              for s in ("port-ilqr", "port-fused"))
@@ -113,7 +121,6 @@ def setup(out: Path) -> dict:
     from aircraft_tpu.solvers.trim import multistart_trim as ref_trim
 
     from aircraft_tpu_torch import bench as port_bench
-    from aircraft_tpu_torch.solvers.trim import multistart_trim as port_trim
 
     cfg, jparams, _, jtrack, jv, _ = ref_bench._build_problem()
     rows = {}
@@ -121,17 +128,20 @@ def setup(out: Path) -> dict:
         t = ref_trim(jparams, jax.random.PRNGKey(0), n_starts=8,
                      target_airspeed=v, prefer_coordinated=True)
         rows.setdefault("ref", []).append((v, _ld(t.state)))
-    _, pparams, _, ptrack, pv, _ = port_bench.build_problem("cpu")
+    _, hparams, _, htrack, hv, _ = port_bench.build_problem("cpu")
     for v in SPEEDS:
-        t = port_trim(pparams, n_starts=8, target_airspeed=v,
-                      prefer_coordinated=True,
-                      generator=torch.Generator().manual_seed(0))
-        rows.setdefault("port", []).append((v, _ld(t.state)))
+        t = port_bench.setup_trim(hparams, 8, v)
+        rows.setdefault("host", []).append((v, _ld(t.state)))
+    hz, ht = port_bench.fleet_states(hparams, htrack, FLEET, hv)
+    (pv, p_ld), pt, lds = device_f32_setup(hparams)
+    rows["port"] = lds
+    _, _, _, ptrack, _, _ = port_bench.build_problem("cpu", glide=(pv, p_ld))
+    pz = torch.as_tensor(port_bench.fleet_rows(ptrack, FLEET, pv))
     jz, jt = ref_bench._bench_fleet_states(cfg, jparams, jtrack, FLEET, jv)
-    pz, pt = port_bench.fleet_states(pparams, ptrack, FLEET, pv)
     saved, report = {}, {}
     for name, v_ref, track, z, trim in (
-            ("ref", jv, jtrack, jz, jt), ("port", pv, ptrack, pz, pt)):
+            ("ref", jv, jtrack, jz, jt), ("host", hv, htrack, hz, ht),
+            ("port", pv, ptrack, pz, pt)):
         lds = rows[name]
         best = max(lds, key=lambda r: r[1])
         pts = np.asarray(track.track_points)
@@ -166,14 +176,40 @@ def setup(out: Path) -> dict:
         report["card"] = {"v_ref": v_ref, "glide_ld": round(glide_ld, 4),
                           "trim_control": np.round(
                               saved["card_trim_control"], 5).tolist()}
-    report["track_max_abs_diff_m"] = float(np.abs(
-        saved["ref_track"] - saved["port_track"]).max())
-    report["fleet_max_abs_diff"] = float(np.abs(
-        saved["ref_z0s"] - saved["port_z0s"]).max())
+    for name in ("host", "port"):
+        report[f"{name}_track_max_abs_diff_m"] = float(np.abs(
+            saved["ref_track"] - saved[f"{name}_track"]).max())
+        report[f"{name}_fleet_max_abs_diff"] = float(np.abs(
+            saved["ref_z0s"] - saved[f"{name}_z0s"]).max())
+    report["host_glide_ld_rel_to_reference"] = float(
+        saved["host_glide"][1] / REFERENCE_GLIDE[1] - 1.0)
     out.mkdir(parents=True, exist_ok=True)
     np.savez(out / "setups.npz", **saved)
     (out / "setup.json").write_text(json.dumps(report, indent=1))
     return report
+
+
+def device_f32_setup(params):
+    """The set-up the port's bench found before its searches moved to the
+    host: ``multistart_trim`` in float32 on ``params``' device from
+    ``torch.Generator().manual_seed(0)`` clouds, 8 starts per candidate
+    speed and 32 for the fleet trim at ``v_ref + 2``.  Returns ((v_ref,
+    glide_ld), fleet trim, [(speed, L/D)])."""
+    import torch
+
+    from aircraft_tpu_torch.solvers.trim import multistart_trim
+
+    lds = []
+    for v in SPEEDS:
+        t = multistart_trim(params, n_starts=8, target_airspeed=v,
+                            prefer_coordinated=True,
+                            generator=torch.Generator().manual_seed(0))
+        lds.append((v, _ld(t.state.detach().cpu().numpy())))
+    v_ref, ld = max(lds, key=lambda r: r[1])
+    trim = multistart_trim(params, n_starts=32, target_airspeed=v_ref + 2.0,
+                           prefer_coordinated=True,
+                           generator=torch.Generator().manual_seed(0))
+    return (v_ref, 0.9 * ld), trim, lds
 
 
 def _trim_table(params, z0s, v, dtype):
@@ -216,11 +252,10 @@ def trims(out: Path, device: str) -> dict:
     m/s (``fleet_states`` at ``v_ref + 2``).  Imports no JAX."""
     import torch
 
-    from aircraft_tpu_torch import bench as port_bench
     from aircraft_tpu_torch.config import glider_config
     from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
     from aircraft_tpu_torch.dynamics.coefficients import load_mlp
-    from aircraft_tpu_torch.solvers.trim import multistart_trim, start_cloud
+    from aircraft_tpu_torch.solvers.trim import start_cloud
 
     cfg = glider_config()
     runs = {"cpu-f32": ("cpu", torch.float32),
@@ -236,14 +271,9 @@ def trims(out: Path, device: str) -> dict:
             z0s = start_cloud(n, torch.Generator().manual_seed(0), "cpu")
             cases[f"{v:g}m/s x{n}"] = _trim_table(params, z0s, v, dtype)
         if dtype == torch.float32:
-            # the set-up the bench finds on this device: its best glide
-            # and its fleet trim (``fleet_states``: 32 starts at v_ref + 2)
-            glide = port_bench.plant_best_glide(params)
+            # the float32 set-up on this device (``device_f32_setup``)
+            glide, trim, _ = device_f32_setup(params)
             cases["plant_best_glide"] = glide
-            trim = multistart_trim(
-                params, n_starts=32, target_airspeed=glide[0] + 2.0,
-                prefer_coordinated=True,
-                generator=torch.Generator().manual_seed(0))
             cases["setup"] = {"glide": list(glide), "trim_control":
                               trim.control.cpu().double().tolist()}
         report[name] = cases
@@ -258,6 +288,58 @@ def trims(out: Path, device: str) -> dict:
             for k, c in cases.items()}), flush=True)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"trims_{device}.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
+def headline(out: Path, device: str, seeds, windows: int = 10) -> dict:
+    """The port's headline chain at the bench's default depth (a cold, 6
+    warm-up and 3 timed windows of the whole fleet, ``bench.run_headline``)
+    on ``device`` for each seed of the set-up's start clouds: the set-up,
+    each window's summary and the gate (``headline_<device>.json``).
+    Imports no JAX."""
+    import torch
+
+    from aircraft_tpu_torch import bench as port_bench
+    from aircraft_tpu_torch.config import glider_config
+    from aircraft_tpu_torch.control.course import course_track
+    from aircraft_tpu_torch.dynamics.aircraft import AircraftParams
+    from aircraft_tpu_torch.dynamics.coefficients import load_mlp
+    from aircraft_tpu_torch.kernels import window
+
+    report = {"device": port_bench._card(torch.device(device))}
+    params = AircraftParams.from_config(
+        glider_config().aircraft, coeff=load_mlp(device=device),
+        device=device)
+    for seed in seeds:
+        glide = port_bench.plant_best_glide(params, seed=seed)
+        _, trim = port_bench.fleet_states(params, course_track(
+            glider_config(), v_ref=glide[0], glide_ld=glide[1]), 1, glide[0],
+            seed=seed)
+        rows = []
+
+        def on_window(w, sols):
+            rows.append({"window": w, **window_row(
+                sols.violation.detach().cpu().numpy(),
+                sols.cost.detach().cpu().numpy())})
+            print(f"seed {seed} window {w}: {json.dumps(rows[-1])}",
+                  flush=True)
+
+        window.reset_launch_counts()     # this seed's chain only
+        head = port_bench.run_headline(device, seed=seed, glide=glide,
+                                       warmup=windows - 4, on_window=on_window)
+        report[f"seed {seed}"] = {
+            "glide": list(glide),
+            "trim_control": trim.control.cpu().double().tolist(),
+            "windows": rows,
+            "gate_passed": head["feasibility_gate_95pct_1e2_passed"],
+            "converged_fraction_1e2": head["converged_fraction_1e2"],
+            "wall_s_per_batch": head["wall_s_per_batch"],
+            "kernel_launches": head["kernel_launches"]}
+        print(f"seed {seed}: set-up {json.dumps(list(glide))}, gate "
+              f"{head['feasibility_gate_95pct_1e2_passed']} (converged "
+              f"fraction {head['converged_fraction_1e2']})", flush=True)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"headline_{device}.json").write_text(json.dumps(report, indent=1))
     return report
 
 
@@ -589,30 +671,35 @@ def _merged(out: Path, arm: str, stride: int):
     return rows
 
 
-def card_chain(log: Path) -> list:
+def card_chain(log: Path):
     """The port's fused chain on the card, window by window, from the
     ``chain window <w>: {...}`` lines of a ``chip_smoke.py`` log (the
-    whole fleet on the set-up the card finds, set-up ``card``)."""
-    rows = []
+    whole fleet), and its set-up: ``host`` where the log prints the
+    set-up it held (``set-up: ...``, the smoke since the searches moved
+    to the host), else ``card`` (the float32 set-up found on the card)."""
+    rows, name = [], "card"
     for line in log.read_text().splitlines():
+        if line.startswith("set-up: "):
+            name = "host"
         m = re.match(r"chain window (\d+)[^:]*: (\{.*\})$", line.strip())
         if m:
             if rows and int(m.group(1)) == 0:
                 break   # the log's first chain only
             rows.append({"window": int(m.group(1)), **json.loads(m.group(2))})
-    return rows
+    return name, rows
 
 
 def table(out: Path, stride: int = 8, card_log: Path = None) -> dict:
     """Every arm side by side, on the fleet rows ``[::stride]`` and, where
     the arm ran on every offset, on the whole fleet (with the card's own
-    chain from ``card_log``, arm ``card-fused@card``); and whether each
-    tracks ``ref@<set-up>`` on its set-up."""
+    chain from ``card_log``, arm ``card-fused@<its set-up>``); and whether
+    each tracks ``ref@<set-up>`` on its set-up."""
     result = {}
     for fleet in ("rows", "whole"):
         arms = {}
         if fleet == "whole" and card_log is not None:
-            arms["card-fused@card"] = card_chain(card_log)
+            name, rows = card_chain(card_log)
+            arms[f"card-fused@{name}"] = rows
         for a in ARMS:
             if fleet == "rows" and _arm_file(out, a, 0).exists():
                 arms[a] = json.loads(_arm_file(out, a, 0).read_text())
@@ -648,23 +735,29 @@ def table(out: Path, stride: int = 8, card_log: Path = None) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arm", default="all",
-                    choices=("all", "setup", "table", "trims") + ARMS + SAME
-                    + BATCH)
+                    choices=("all", "setup", "table", "trims", "headline")
+                    + ARMS + SAME + BATCH)
     ap.add_argument("--device", default="cpu",
-                    help="the trims arm's device besides the CPU")
+                    help="the trims arm's device besides the CPU; the "
+                    "headline arm's device")
+    ap.add_argument("--seeds", default="0",
+                    help="the headline arm's set-up seeds, comma-separated")
     ap.add_argument("--out", default=str(ROOT / "build" / "aircraft_tpu_torch"
                                          / "chain_crossing"))
     ap.add_argument("--stride", type=int, default=8)
     ap.add_argument("--windows", type=int, default=10)
     ap.add_argument("--card-log", default=None,
                     help="a chip_smoke.py log: the table adds the card's "
-                         "chain (set-up card)")
+                         "chain")
     ap.add_argument("--offset", type=int, default=0,
                     help="an arm's first fleet row (rows [offset::stride])")
     a = ap.parse_args(argv)
     out = Path(a.out)
     if a.arm == "trims":
         trims(out, a.device)
+    elif a.arm == "headline":
+        headline(out, a.device, [int(k) for k in a.seeds.split(",")],
+                 a.windows)
     elif a.arm == "setup":
         print(json.dumps(setup(out), indent=1))
     elif a.arm == "table":

@@ -60,9 +60,14 @@ must pass or the script exits non-zero without a result line:
               each window's converged fraction, mean cost and mean
               violation on a line of its own, each window kernel launched
               once per inner iteration, finite fraction 1.0, the gate
-              printed and not held (the set-up the card's trim searches
-              find misses it in the reference's own chain too,
-              chain_crossing.py);
+              printed and not held (at the default seed the chain ends
+              near the gate on the reference's set-up, chain_crossing.py);
+              before it, the set-up (best-glide speed and L/D, the track
+              laid out on them, the fleet trim) that build_problem("cuda")
+              and build_problem("cpu") each find, held equal bit for bit
+              (both search on the host in float64), v_ref held at the
+              reference bench's 32.0 and glide_ld within 1% of its
+              9.4444, printed beside them;
               one fused and one iLQR inner iteration timed
               piece by piece (host wall; the device's busy share from
               torch.profiler), and one backward pass on each Quu-solve
@@ -287,6 +292,48 @@ def mlp_glide(device="cuda"):
     from aircraft_tpu_torch import bench
 
     return bench.plant_best_glide(fleet_problem_params(device))
+
+
+# the reference bench's (v_ref, glide_ld) for data/networks/mlp.npz
+# (chain_crossing.REFERENCE_GLIDE, which imports the JAX side)
+REFERENCE_SETUP = (32.0, 9.444397062835858)
+
+
+def setup_holds():
+    """The headline's set-up as ``bench.build_problem("cuda")`` and
+    ``build_problem("cpu")`` each find it (their trim searches run on the
+    host in float64 from the reference's start clouds), held equal bit for
+    bit: v_ref, the track laid out on the best glide, the fleet trim; and
+    against the reference bench's.  Returns the line it prints."""
+    from aircraft_tpu_torch import bench
+
+    found = {}
+    for dev in ("cuda", "cpu"):
+        _, params, _, track, v_ref, _ = bench.build_problem(dev)
+        _, trim = bench.fleet_states(params, track, 1, v_ref)
+        found[dev] = (v_ref, track.track_points.cpu(),
+                      [t.cpu() for t in trim])
+    (vc, tc, trim_c), (vh, th, trim_h) = found["cuda"], found["cpu"]
+    check(vc == vh and torch_equal(tc, th)
+          and all(torch_equal(a, b) for a, b in zip(trim_c, trim_h)),
+          "set-up: build_problem('cuda') and build_problem('cpu') differ")
+    glide = mlp_glide()
+    check(glide[0] == vc == REFERENCE_SETUP[0]
+          and abs(glide[1] / REFERENCE_SETUP[1] - 1.0) <= 1e-2,
+          f"set-up: (v_ref, glide_ld) {glide} against the reference's "
+          f"{REFERENCE_SETUP}")
+    return (f"set-up: v_ref, glide_ld {json.dumps(list(glide))} (the "
+            f"reference bench's {json.dumps(list(REFERENCE_SETUP))}); "
+            "fleet trim control "
+            f"{json.dumps(trim_c[1].numpy().round(5).tolist())}; "
+            "build_problem on cuda and on cpu bit-equal (v_ref, track, "
+            "fleet trim)")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 def fleet_problem_params(device="cuda"):
@@ -3109,16 +3156,7 @@ def main() -> int:
     sync_audit(ocp, us, inp)
 
     phase("path: fused serving chain at the bench's default depth")
-    from aircraft_tpu_torch.control.course import course_track
-    from aircraft_tpu_torch.config import glider_config
-
-    glide = mlp_glide()
-    _, trim = bench.fleet_states(fleet_problem_params(), course_track(
-        glider_config(), v_ref=glide[0], glide_ld=glide[1]), 1, glide[0])
-    print("the port's set-up on the card: v_ref, glide_ld "
-          f"{json.dumps([round(g, 6) for g in glide])}, fleet trim control "
-          f"{json.dumps(trim.control.cpu().numpy().round(5).tolist())}",
-          flush=True)
+    print(setup_holds(), flush=True)
     reset_all_counts()
     head = bench.run_headline("cuda", batch=256, glide=mlp_glide(),
                               on_window=print_window)
@@ -3132,10 +3170,9 @@ def main() -> int:
     check(head["finite_fraction"] == 1.0,
           f"fused chain finite_fraction {head['finite_fraction']}")
     check(head["fused_kernels"], "fused chain did not run the kernels")
-    # the gate is printed, not held: the set-up is found by trim searches
-    # whose end points rounding decides, and on the set-up they find on
-    # the card the reference's own chain misses the gate too
-    # (chain_crossing.py, set-up "card")
+    # the gate is printed, not held: on the reference's set-up the chain
+    # ends near it at the default seed, on both sides of it across seeds
+    # (chain_crossing.py --arm headline)
     print(f"fused chain at {head['windows']} windows: gate "
           f"{head['feasibility_gate_95pct_1e2_passed']} "
           f"(converged_fraction_1e2 {head['converged_fraction_1e2']})",
